@@ -1,0 +1,337 @@
+"""`Session`: the owner of GLM solver state, on resident tensors.
+
+    s = Session((X, y), objective="logistic", lam=1e-3, cfg=cfg)
+    s.epoch()                 # run exactly one epoch, get metrics back
+    s.fit(until=10)           # train up to absolute epoch 10
+    s.fit(max_epochs=5)       # ... or 5 more epochs from wherever we are
+
+`fit` drives a callback protocol (`on_epoch_end(metrics) -> stop?`).
+
+Data sources accepted by the constructor:
+
+  * ``(X, y)``            dense arrays, engine layout ``X (d, n)``;
+  * ``((idx, val), y)``   padded-CSR sparse (requires ``d=``);
+  * ``"higgs"``           any `repro_torch.data.registry` name.
+
+All data is resident on the session's device.  Streamed sources, tile
+caches, meshes and the resilience runtime of the reference's Session
+are later slices of the port and raise `NotImplementedError` naming
+their ROADMAP queue item.
+
+Examples are PADDED (x=0, y=+1 — inert, a zero row never moves v) up
+to the multiple the chosen topology needs; ``n_examples`` records the
+true count.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core import engine, objectives
+from repro_torch.core.bucketing import make_plan
+from repro_torch.core.config import EngineConfig, as_engine_config
+from repro_torch.core.objectives import Objective, get_objective
+from repro_torch.core.partition import PartitionPlan
+from repro_torch.core.trainer import FitResult
+from repro_torch.data.cache import pad_examples
+from repro_torch.device import resolve_device
+
+Tensor = torch.Tensor
+
+__all__ = ["Session", "margins"]
+
+
+def margins(v: Tensor, data) -> Tensor:
+    """Decision margins x_i^T v for dense ``X (d, n)`` or a padded-CSR
+    ``(idx, val)`` pair; returns ``(n,)``."""
+    if isinstance(data, (tuple, list)):
+        idx, val = data
+        return torch.sum(v[idx.long()] * val, dim=1)
+    return data.T @ v
+
+
+def _pad_multiple(spec: EngineConfig, bucket: int) -> int:
+    """Example-count multiple every partition mode divides."""
+    dep, algo = spec.deployment, spec.algo
+    return dep.pods * dep.lanes * dep.lanes * algo.chunks * max(bucket, 1)
+
+
+def _unported(what: str, item: str):
+    raise NotImplementedError(
+        f"{what} is not ported to repro_torch yet (ROADMAP queue {item})")
+
+
+class Session:
+    """Engine state + epoch control over one resolved data source.
+
+    ``device`` defaults to ``"cuda"``: without a GPU the constructor
+    raises unless the caller passes ``device="cpu"``.  On the card TF32
+    is turned off (`torch.backends.cuda.matmul.allow_tf32` and
+    `torch.backends.cudnn.allow_tf32` are set False), so every fp32
+    product — margins, Gram matrices, the duality gap — stays fp32.
+    """
+
+    def __init__(self, data, y=None, *, objective: str | Objective | None
+                 = None, lam: Optional[float] = None, cfg: Any = None,
+                 d: Optional[int] = None, bucket: Optional[int] = None,
+                 n: Optional[int] = None, data_dir=None, pad: bool = True,
+                 device="cuda", streamed: bool = False, mesh=None,
+                 cache_dir=None, health=None, journal_dir=None,
+                 faults=None):
+        if streamed:
+            _unported("streamed=True (out-of-core training)", "A8")
+        if mesh is not None:
+            _unported("mesh= (multi-GPU training)", "A11")
+        if cache_dir is not None:
+            _unported("cache_dir= (the tile cache)", "A7")
+        if health is not None or journal_dir is not None or faults is not None:
+            _unported("health=/journal_dir=/faults= (resilience)", "A12")
+        self.device = resolve_device(device)
+        self.spec = as_engine_config(cfg) if cfg is not None \
+            else EngineConfig()
+        self.solver_plan = None      # the planner is ROADMAP queue A10
+        self.history: list[dict[str, float]] = []
+
+        # `Session((X, y))` / `Session(((idx, val), y))` sugar — only
+        # when the second element is labels-shaped (1-D)
+        if (y is None and isinstance(data, (tuple, list))
+                and len(data) == 2 and np.ndim(data[1]) == 1):
+            data, y = data
+
+        if isinstance(data, str):
+            self._init_from_registry(data, objective=objective, lam=lam,
+                                     bucket=bucket, n=n, d=d,
+                                     data_dir=data_dir)
+        elif hasattr(data, "gather_buckets"):
+            _unported("TileCache sources", "A7")
+        elif hasattr(data, "fetch"):
+            _unported("ChunkFeed sources", "A8")
+        else:
+            if y is None:
+                raise TypeError("array data requires labels: "
+                                "Session((X, y)) or Session(X, y)")
+            self._init_from_arrays(data, y, objective=objective, lam=lam,
+                                   d=d, bucket=bucket, pad=pad)
+
+    # -- construction -------------------------------------------------------
+
+    def _resolve_obj(self, objective, lam, default_obj="logistic",
+                     default_lam=1e-3) -> None:
+        objective = objective or default_obj
+        self.obj = (objective if isinstance(objective, Objective)
+                    else get_objective(objective))
+        self.lam = float(default_lam if lam is None else lam)
+
+    def _kernel_runs(self) -> bool:
+        kind = self.spec.algo.local_solver
+        if kind == "auto":
+            kind = engine.resolve_auto_solver(self.device)
+        return kind == "kernel"
+
+    def _init_from_arrays(self, data, y, *, objective, lam, d, bucket, pad,
+                          trusted_rows: bool = False) -> None:
+        """Resident-array setup.  When padding grows n -> n', lam is
+        rescaled by n/n' so the padded objective keeps the USER's argmin
+        exactly (lam*n, the dual scaling, is unchanged)."""
+        self._resolve_obj(objective, lam)
+        sparse = isinstance(data, (tuple, list))
+        y = np.asarray(y, np.float32)
+        self.n_examples = y.shape[0]
+        algo = self.spec.algo
+        force = bucket if bucket is not None else (algo.bucket or None)
+        B = force if force else 1
+        if sparse:
+            idx = np.asarray(data[0], np.int32)
+            val = np.asarray(data[1], np.float32)
+            if d is None:
+                raise ValueError("sparse array data requires d")
+            if idx.size and (idx.min() < 0 or idx.max() >= d):
+                # the kernel would read outside v; the reference clamps
+                raise ValueError(
+                    f"sparse feature ids must lie in [0, d={d}), got "
+                    f"[{idx.min()}, {idx.max()}]")
+            if not trusted_rows and self._kernel_runs():
+                # the kernel's bitwise contract is stated for rows that
+                # hold the CSR invariant; check them while on the host
+                from repro_torch.data.formats import \
+                    raise_on_duplicate_nonzeros
+                raise_on_duplicate_nonzeros(idx, val, "ad-hoc sparse rows")
+            if pad:
+                y, _, idx, val = pad_examples(
+                    y, _pad_multiple(self.spec, B), idx=idx, val=val)
+            self.n, self.d = int(y.shape[0]), int(d)
+            self.idx = torch.as_tensor(idx, device=self.device)
+            self.val = torch.as_tensor(val, device=self.device)
+        else:
+            X = np.asarray(data, np.float32)
+            self.d = int(X.shape[0])
+            if pad:
+                y, X, _, _ = pad_examples(y, _pad_multiple(self.spec, B), X=X)
+            self.n = int(y.shape[0])
+            self.X = torch.as_tensor(X, device=self.device)
+        if self.n > self.n_examples:
+            self.lam *= self.n_examples / self.n
+        self.y = torch.as_tensor(y, device=self.device)
+        self.sparse = sparse
+
+        dep = self.spec.deployment
+        self.bplan = make_plan(self.n, self.d, force=force or 1)
+        if self.bplan.bucket != algo.bucket:
+            # the plan's bucket is authoritative (run_epoch chunks by it)
+            algo = dataclasses.replace(algo, bucket=self.bplan.bucket)
+            self.spec = dataclasses.replace(self.spec, algo=algo)
+        self.plan = PartitionPlan(
+            n_buckets=self.bplan.n_buckets, pods=dep.pods,
+            lanes=dep.lanes, mode=algo.partition, seed=algo.seed,
+            redeal_frac=algo.redeal_frac)
+        self.alpha = torch.zeros(self.n, dtype=torch.float32,
+                                 device=self.device)
+        self.v = torch.zeros(self.d, dtype=torch.float32, device=self.device)
+        self.epochs_done = 0
+
+    def _init_from_registry(self, name, *, objective, lam, bucket, n, d,
+                            data_dir) -> None:
+        from repro_torch.data import registry
+        spec = registry.get_spec(name)
+        objective = objective or spec.objective
+        lam = spec.lam if lam is None else lam
+        B = bucket or max(self.spec.algo.bucket, 1)
+        ds = registry.get_dataset(name, n=n, d=d, data_dir=data_dir)
+        if ds.sparse:
+            # registry samplers dedupe rows at the source
+            self._init_from_arrays((ds.idx, ds.val), ds.y,
+                                   objective=objective, lam=lam, d=ds.d,
+                                   bucket=B, pad=True, trusted_rows=True)
+        else:
+            self._init_from_arrays(ds.X, ds.y, objective=objective,
+                                   lam=lam, d=None, bucket=B, pad=True)
+
+    # -- epoch-level control ------------------------------------------------
+
+    def _run_epoch(self, alpha: Tensor, v: Tensor, epoch: int):
+        if self.sparse:
+            return engine.sim_epoch_sparse(
+                self.obj, self.idx, self.val, self.y, alpha, v, self.lam,
+                self.plan, self.bplan, self.spec, epoch, device=self.device)
+        return engine.sim_epoch_dense(
+            self.obj, self.X, self.y, alpha, v, self.lam, self.plan,
+            self.bplan, self.spec, epoch, device=self.device)
+
+    def epoch(self) -> dict[str, float]:
+        """Run exactly one epoch; returns {'epoch', 'rel_change', 't'}.
+
+        't' is this epoch's duration when called standalone; inside
+        `fit` it is rewritten to the cumulative fit wall-clock."""
+        t0 = time.perf_counter()
+        v_prev = self.v
+        self.alpha, self.v = self._run_epoch(self.alpha, self.v,
+                                             self.epochs_done)
+        self.epochs_done += 1
+        rel = float(torch.linalg.norm(self.v - v_prev)
+                    / torch.clamp_min(torch.linalg.norm(self.v), 1e-30))
+        rec = {"epoch": self.epochs_done, "rel_change": rel,
+               "t": time.perf_counter() - t0}
+        self.history.append(rec)
+        return rec
+
+    def fit(self, *, until: Optional[int] = None,
+            max_epochs: Optional[int] = None, tol: float = 1e-3,
+            gap_every: int = 0, callbacks: Sequence = (),
+            verbose: bool = False, diverge_above: float = 1e8) -> FitResult:
+        """Train to `until` (absolute epoch) or `max_epochs` more epochs.
+
+        Stops early when the relative model change drops below `tol`
+        (the paper's stopping rule), when the iterate diverges, or when
+        any callback's `on_epoch_end(metrics)` returns truthy.
+        Re-entrant: a second `fit` continues from the current state.
+        """
+        if until is None:
+            until = self.epochs_done + (100 if max_epochs is None
+                                        else max_epochs)
+        elif max_epochs is not None:
+            raise TypeError("pass either until= or max_epochs=, not both")
+        cbs = list(callbacks)
+        for cb in cbs:
+            bind = getattr(cb, "bind", None)
+            if bind is not None:
+                bind(self)
+        needs_gap = any(getattr(cb, "needs_gap", False) for cb in cbs)
+
+        history: list[dict[str, float]] = []
+        t0 = time.perf_counter()
+        converged = diverged = False
+        while self.epochs_done < until:
+            rec = self.epoch()
+            rec["t"] = time.perf_counter() - t0
+            vmax = float(torch.max(torch.abs(self.v)))
+            if not np.isfinite(vmax) or vmax > diverge_above:
+                diverged = True
+                history.append(rec)
+                break
+            if needs_gap or (gap_every and self.epochs_done % gap_every == 0):
+                rec["gap"] = self.gap()
+            history.append(rec)
+            if verbose:
+                print(f"epoch {self.epochs_done:4d} "
+                      f"rel={rec['rel_change']:.3e} "
+                      + (f"gap={rec['gap']:.3e}" if "gap" in rec else ""))
+            stop = False
+            for cb in cbs:
+                fn = getattr(cb, "on_epoch_end", cb)
+                stop = bool(fn(rec)) or stop
+            if rec["rel_change"] < tol:
+                converged = True
+                break
+            if stop:
+                break
+        if not history:
+            history = [{"epoch": self.epochs_done, "rel_change": 0.0,
+                        "t": 0.0, "gap": self.gap()}]
+        elif "gap" not in history[-1]:
+            history[-1]["gap"] = self.gap() if not diverged else float("inf")
+        return FitResult(
+            epochs=self.epochs_done, converged=converged,
+            diverged=diverged, v=self.v.cpu().numpy(),
+            alpha=self.alpha.cpu().numpy(), history=history,
+            wall_time=time.perf_counter() - t0)
+
+    # -- diagnostics ----------------------------------------------------------
+
+    def primal(self) -> float:
+        """Primal objective P(v) at the current shared vector."""
+        if self.sparse:
+            m = margins(self.v, (self.idx, self.val))
+            return float(torch.sum(self.obj.loss(m, self.y)) / self.n
+                         + 0.5 * self.lam * torch.sum(self.v ** 2))
+        return float(objectives.primal_value(
+            self.obj, self.v, self.X, self.y, self.lam))
+
+    def gap(self) -> float:
+        """Duality gap P(v) - D(alpha) — the convergence certificate."""
+        if self.sparse:
+            dval = objectives.dual_value(self.obj, self.alpha, self.v,
+                                         self.y, self.lam)
+            return self.primal() - float(dval)
+        return float(objectives.duality_gap(
+            self.obj, self.alpha, self.v, self.X, self.y, self.lam))
+
+    # -- checkpoint/restart ---------------------------------------------------
+
+    def state_dict(self) -> dict[str, Any]:
+        """Training state (alpha, v, epoch) as host arrays."""
+        return {"alpha": self.alpha.cpu().numpy(),
+                "v": self.v.cpu().numpy(),
+                "epoch": np.int64(self.epochs_done)}
+
+    def load_state_dict(self, st: dict[str, Any]) -> None:
+        """Restore training state produced by `state_dict` (or by
+        `repro_torch.convert.session_state` from the reference)."""
+        self.alpha = torch.tensor(np.asarray(st["alpha"], np.float32),
+                                  device=self.device)
+        self.v = torch.tensor(np.asarray(st["v"], np.float32),
+                              device=self.device)
+        self.epochs_done = int(st["epoch"])

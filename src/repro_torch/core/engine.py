@@ -1,0 +1,486 @@
+"""The solver engine, simulator path: ONE epoch program over P*K workers.
+
+The paper's algorithm — bucketed SDCA + dynamic bucket re-dealing +
+hierarchical aggregation — is a single bulk-synchronous program:
+
+    schedule -> re-deal -> (chunked local sub-epoch) -> sync -> pod-reduce
+
+`run_epoch` implements it once, parametrized by two seams:
+
+  * `SimCollectives` — pods x lanes *virtual* workers stacked on the
+    leading axes of one device's tensors.  `map_workers` hands a solver
+    the whole (P*K) stack in one call, so a kernel solver runs every
+    worker in one launch; reductions are explicit left-to-right adds
+    over the lane and pod axes (the order the multi-GPU path will
+    reproduce).
+  * `LocalSolver` — how the workers solve their chunks: the plain
+    PyTorch versions (`"torch"`, `core.sdca`) or the CUDA kernels
+    (`"kernel"`, `kernels.ops`).  `"auto"` picks the kernel on a CUDA
+    device and the plain version on the CPU.
+
+Worker PRNG streams are drawn from the threefry port `core.prng`,
+integer-exact against the reference:
+
+    worker_key = fold(fold(fold(PRNGKey(seed), epoch), pod), lane)
+    re-deal perm   <- fold(worker_key, 0)
+    visit-order    <- fold(worker_key, 1)
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional, Protocol, Union
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from . import prng, sdca
+from .config import AlgoConfig, EngineConfig, as_engine_config
+from .objectives import Objective
+
+Tensor = torch.Tensor
+
+# ---------------------------------------------------------------------------
+# Worker-local data blocks
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseBlock:
+    """Dense worker-local examples: X (*w, d_shard, n_local)."""
+    X: Tensor
+
+    @property
+    def n_local(self) -> int:
+        return self.X.shape[-1]
+
+    def take(self, cols: Tensor):
+        return torch.take_along_dim(self.X, cols[..., None, :], dim=-1)
+
+    def arrs(self):
+        return ((self.X, -1),)
+
+    def rebuild(self, arrs) -> "DenseBlock":
+        return DenseBlock(arrs[0])
+
+
+@dataclasses.dataclass(frozen=True)
+class SparseBlock:
+    """Padded-CSR worker-local examples: idx/val (*w, n_local, nnz)."""
+    idx: Tensor
+    val: Tensor
+
+    @property
+    def n_local(self) -> int:
+        return self.idx.shape[-2]
+
+    def take(self, cols: Tensor):
+        c = cols[..., :, None]
+        return (torch.take_along_dim(self.idx, c, dim=-2),
+                torch.take_along_dim(self.val, c, dim=-2))
+
+    def arrs(self):
+        return ((self.idx, -2), (self.val, -2))
+
+    def rebuild(self, arrs) -> "SparseBlock":
+        return SparseBlock(arrs[0], arrs[1])
+
+
+Block = Union[DenseBlock, SparseBlock]
+
+# ---------------------------------------------------------------------------
+# Local solvers (every worker's sub-epoch, stacked on a leading axis)
+# ---------------------------------------------------------------------------
+
+
+class LocalSolver(Protocol):
+    """The workers' pass over their chunks: (data, y, a, v) -> (a_new, dv).
+
+    Every argument carries a leading worker axis (W,); `data` is an X
+    tile (W, d, nc) for dense solvers or an (idx, val) pair of
+    (W, nc, nnz) for sparse ones; `dv` is the UNSCALED global delta.
+    """
+
+    def __call__(self, data, y: Tensor, a: Tensor, v: Tensor
+                 ) -> tuple[Tensor, Tensor]: ...
+
+
+def resolve_auto_solver(device) -> str:
+    """What `local_solver="auto"` means on `device`: the kernel on a
+    CUDA device, the plain PyTorch version on the CPU."""
+    return "kernel" if torch.device(device).type == "cuda" else "torch"
+
+
+def make_local_solver(kind: str, obj: Objective, lam_n: float, sig: float,
+                      *, bucket: int = 1, sparse: bool = False,
+                      device="cuda") -> LocalSolver:
+    """Resolve an `AlgoConfig.local_solver` name to a LocalSolver.
+
+    "kernel" launches the CUDA kernel and needs a CUDA device: on the
+    CPU it raises.  A shape the kernel cannot take raises with the
+    misfit's code and reason; nothing routes quietly to the plain
+    version.
+    """
+    from repro_torch.kernels import ops as kops
+    device = torch.device(device)
+    if kind == "auto":
+        kind = resolve_auto_solver(device)
+    if kind not in ("torch", "kernel"):
+        raise ValueError(f"unknown local_solver {kind!r}; "
+                         f"have 'auto', 'torch', 'kernel'")
+    if kind == "kernel" and device.type != "cuda":
+        raise ValueError(
+            f"local_solver='kernel' launches a CUDA kernel and needs CUDA "
+            f"tensors, got device {device}; use local_solver='torch' or "
+            f"'auto' on the CPU")
+    lam_t = torch.tensor(lam_n, dtype=torch.float32, device=device)
+    sig_t = torch.tensor(sig, dtype=torch.float32, device=device)
+
+    def _raise_misfit(why, path):
+        raise ValueError(f"local_solver='kernel': the {path} CUDA kernel "
+                         f"cannot run this workload [{why.code}]: {why}")
+
+    if sparse:
+        if kind == "torch":
+            def solve(data, y, a, v):
+                idx, val = data
+                return sdca.sparse_local_subepoch(obj, idx, val, y, a, v,
+                                                  lam_t, sig_t)
+            return solve
+
+        def solve(data, y, a, v):
+            idx, val = data
+            why = kops.sparse_kernel_misfit(idx.shape[-2], idx.shape[-1],
+                                            v.shape[-1], bucket)
+            if why is not None:
+                _raise_misfit(why, "sparse")
+            return kops.sdca_sparse_bucket_subepoch(
+                obj, idx, val, y, a, v, lam_n, sig, bucket=bucket,
+                source="resident arrays")
+        return solve
+
+    if kind == "torch":
+        def solve(X, y, a, v):
+            return sdca.dense_local_subepoch(obj, X, y, a, v, lam_t, sig_t,
+                                             bucket)
+        return solve
+
+    def solve(X, y, a, v):
+        why = kops.dense_kernel_misfit(X.shape[-2], X.shape[-1], bucket)
+        if why is not None:
+            _raise_misfit(why, "dense")
+        return kops.sdca_bucket_subepoch(obj, X, y, a, v, lam_n, sig,
+                                         bucket=bucket,
+                                         source="resident arrays")
+    return solve
+
+
+# ---------------------------------------------------------------------------
+# Wire compression helper
+# ---------------------------------------------------------------------------
+
+
+def _quantize_roundtrip(x: Tensor, axis: int) -> Tensor:
+    """Model the int8 wire: per-worker quantize/dequantize along `axis`."""
+    from repro_torch.optim.compression import compress, dequantize
+    qz, _ = compress(x, axis=axis)
+    return dequantize(qz)
+
+
+def _ordered_sum(x: Tensor, dim: int) -> Tensor:
+    """Sum over `dim` as explicit left-to-right adds."""
+    parts = x.unbind(dim)
+    out = parts[0]
+    for p in parts[1:]:
+        out = out + p
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Simulated collectives
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class SimCollectives:
+    """pods x lanes virtual workers stacked on leading tensor axes."""
+    pods: int = 1
+    lanes: int = 1
+    compress_pod: bool = False
+
+    @property
+    def wshape(self) -> tuple[int, ...]:
+        return (self.pods, self.lanes)
+
+    def worker_keys(self, seed: int, epoch: int) -> np.ndarray:
+        """(P, K, 2) uint32 threefry keys, one per worker."""
+        base = prng.fold_in(prng.PRNGKey(seed), int(epoch))
+        per_pod = prng.fold_in(np.broadcast_to(base, (self.pods, 2)),
+                               np.arange(self.pods))
+        return prng.fold_in(
+            np.broadcast_to(per_pod[:, None], (self.pods, self.lanes, 2)),
+            np.arange(self.lanes)[None, :])
+
+    def _perms(self, keys: np.ndarray, stream: int, nb_local: int,
+               device) -> Tensor:
+        """(P, K, nb_local) permutations drawn from fold(key, stream)."""
+        sub = prng.fold_in(keys, stream).reshape(-1, 2)
+        perms = np.stack([prng.permutation(k, nb_local) for k in sub])
+        return torch.as_tensor(
+            perms.reshape(self.pods, self.lanes, nb_local).astype(np.int64),
+            device=device)
+
+    def map_workers(self, fn: Callable, args: tuple):
+        """Flatten (P, K) to one worker axis, call `fn` ONCE on the whole
+        stack (one kernel launch for every worker), and unflatten."""
+        W = self.pods * self.lanes
+
+        def flat(x):
+            if isinstance(x, tuple):
+                return tuple(flat(t) for t in x)
+            return x.reshape((W,) + tuple(x.shape[2:]))
+
+        out = fn(*(flat(a) for a in args))
+        return tuple(o.reshape((self.pods, self.lanes) + tuple(o.shape[1:]))
+                     for o in out)
+
+    def visit_perms(self, keys: np.ndarray, nb_local: int, device) -> Tensor:
+        return self._perms(keys, 1, nb_local, device)
+
+    def broadcast_ids(self, ids: Tensor) -> Tensor:
+        return ids.expand(self.wshape + tuple(ids.shape))
+
+    def redeal(self, arrs, nb_local: int, keys: np.ndarray, frac: float):
+        """Stacked mirror of the all-to-all bucket re-deal: each lane
+        shuffles its buckets (per-worker key), the first `exch` buckets
+        are split K ways and transposed across the lane axis."""
+        P, K = self.pods, self.lanes
+        if K <= 1 or frac <= 0:
+            return tuple(x for x, _ in arrs)
+        exch = max(int(nb_local * frac) // K * K, K)
+        perms = self._perms(keys, 0, nb_local, arrs[0][0].device)
+
+        def one(x, ax):
+            xb = torch.movedim(x, ax, 2)            # (P, K, n_local, ...)
+            shp = xb.shape
+            rows = shp[2] // nb_local
+            rest = tuple(shp[3:])
+            xb = xb.reshape((P, K, nb_local, rows) + rest)
+            idx = perms.reshape((P, K, nb_local) + (1,) * (xb.ndim - 3))
+            xb = torch.take_along_dim(xb, idx, dim=2)
+            head = xb[:, :, :exch]
+            # lane j receives [split_j of lane 0, ..., split_j of lane
+            # K-1] concatenated in lane order == tiled all_to_all
+            head = head.reshape((P, K, K, exch // K, rows) + rest)
+            head = head.transpose(1, 2).reshape((P, K, exch, rows) + rest)
+            xb = torch.cat([head, xb[:, :, exch:]], dim=2)
+            return torch.movedim(xb.reshape(shp), 2, ax)
+
+        return tuple(one(x, ax) for x, ax in arrs)
+
+    def pod_replicate(self, v: Tensor) -> Tensor:
+        if v.ndim == 1:
+            return v.expand((self.pods,) + tuple(v.shape))
+        return v
+
+    def worker_view(self, v: Tensor) -> Tensor:
+        # (P, d) pod replicas -> (P, K, d) per-worker replicas
+        return v[:, None, :].expand(self.pods, self.lanes, v.shape[-1])
+
+    def lane_sum(self, dv: Tensor, compress: bool = False) -> Tensor:
+        """(P, K, d) worker deltas -> (P, d) per-pod ordered sums."""
+        if compress:
+            dv = _quantize_roundtrip(dv, axis=dv.ndim - 1)
+        return _ordered_sum(dv, 1)
+
+    def pod_reduce(self, v_pods: Tensor, v_in: Tensor) -> Tensor:
+        if self.pods == 1:
+            return v_pods[0]
+        deltas = v_pods - v_in
+        if self.compress_pod:
+            deltas = _quantize_roundtrip(deltas, axis=deltas.ndim - 1)
+        return v_in[0] + _ordered_sum(deltas, 0)
+
+
+# ---------------------------------------------------------------------------
+# The epoch program
+# ---------------------------------------------------------------------------
+
+
+def _apply_chunk(coll: SimCollectives, solver: LocalSolver, algo: AlgoConfig,
+                 data, yc: Tensor, ac: Tensor, v_c: Tensor, *,
+                 straggler_mask: Optional[Tensor] = None,
+                 dv_scale: float = 1.0) -> tuple[Tensor, Tensor]:
+    """One chunk's solve/mask/sync."""
+    a_new, dv = coll.map_workers(solver,
+                                 (data, yc, ac, coll.worker_view(v_c)))
+    if straggler_mask is not None:
+        a_new = torch.where(straggler_mask[..., None], a_new, ac)
+        dv = dv * straggler_mask[..., None].to(dv.dtype)
+    if dv_scale != 1.0:
+        dv = dv * torch.tensor(dv_scale, dtype=dv.dtype, device=dv.device)
+    return a_new, v_c + coll.lane_sum(dv, compress=algo.compress_sync)
+
+
+def _put_cols(a: Tensor, cols: Tensor, vals: Tensor) -> Tensor:
+    """alpha[..., cols] = vals with optional leading worker axes."""
+    return a.scatter(-1, cols.expand(a.shape[:-1] + cols.shape[-1:]), vals)
+
+
+def run_epoch(coll: SimCollectives, solver: LocalSolver, algo: AlgoConfig,
+              block: Block, y: Tensor, a: Tensor, v: Tensor, epoch: int, *,
+              straggler_mask: Optional[Tensor] = None, redeal: bool = True,
+              visit_shuffle: bool = True, dv_scale: float = 1.0
+              ) -> tuple[Block, Tensor, Tensor, Tensor]:
+    """One bulk-synchronous epoch over worker-local data.
+
+    schedule/re-deal -> per-chunk: local sub-epoch, straggler mask,
+    lane sync -> per-epoch: pod reduce.  Returns the (possibly
+    re-dealt) block and labels, plus updated (alpha_local, v).
+    """
+    n_local = block.n_local
+    B = algo.bucket
+    if n_local % B:
+        raise ValueError(f"n_local={n_local} not divisible by bucket={B}")
+    nb_local = n_local // B
+    chunks = algo.chunks
+    if nb_local % chunks:
+        raise ValueError(
+            f"chunks={chunks} must divide local bucket count {nb_local}")
+    per_chunk = nb_local // chunks
+    device = y.device
+
+    keys = coll.worker_keys(algo.seed, epoch)
+    if redeal:
+        arrs = block.arrs() + ((y, -1), (a, -1))
+        out = coll.redeal(arrs, nb_local, keys, algo.redeal_frac)
+        nblk = len(block.arrs())
+        block = block.rebuild(out[:nblk])
+        y, a = out[nblk], out[nblk + 1]
+    if visit_shuffle:
+        perm = coll.visit_perms(keys, nb_local, device)
+    else:
+        perm = coll.broadcast_ids(
+            torch.arange(nb_local, dtype=torch.int64, device=device))
+
+    v = coll.pod_replicate(v)
+    v_in = v
+    barange = torch.arange(B, dtype=torch.int64, device=device)
+    for c in range(chunks):
+        ids = perm[..., c * per_chunk:(c + 1) * per_chunk]
+        cols = (ids[..., None] * B + barange).reshape(
+            ids.shape[:-1] + (per_chunk * B,))
+        data = block.take(cols)
+        yc = torch.take_along_dim(y, cols, dim=-1)
+        ac = torch.take_along_dim(a, cols, dim=-1)
+        a_new, v = _apply_chunk(coll, solver, algo, data, yc, ac, v,
+                                straggler_mask=straggler_mask,
+                                dv_scale=dv_scale)
+        a = _put_cols(a, cols, a_new)
+    v = coll.pod_reduce(v, v_in)
+    return block, y, a, v
+
+
+# ---------------------------------------------------------------------------
+# Simulator entry points (global arrays, schedule-based partitioning)
+# ---------------------------------------------------------------------------
+
+
+def _sim_gather(plan, bucket: int, epoch: int) -> np.ndarray:
+    """(P, K, n_local) global example ids for this epoch's schedule."""
+    sched = plan.schedule(epoch).astype(np.int64)      # (P, K, per_lane)
+    return (sched[..., None] * bucket
+            + np.arange(bucket)).reshape(plan.pods, plan.lanes, -1)
+
+
+def sim_worker_data(data, y: Tensor, alpha: Tensor, plan, bucket: int,
+                    epoch: int) -> tuple[Tensor, Block, Tensor, Tensor]:
+    """This epoch's worker-local inputs on the simulator path.
+
+    data: X (d, n) or an (idx, val) pair of (n, nnz).  Returns (ex, block,
+    y_local, alpha_local): ex (P, K, n_local) the global example ids of
+    `plan.schedule(epoch)` in visiting order, and the (P, K, ...) data,
+    labels and duals gathered at ex.  With one chunk, `run_epoch` hands
+    the solver exactly these (the sim path neither re-deals nor
+    shuffles the visit order).
+    """
+    ex = _as(_sim_gather(plan, bucket, epoch), y.device)   # (P, K, n_local)
+    if isinstance(data, tuple):
+        block = SparseBlock(data[0][ex], data[1][ex])
+    else:
+        block = DenseBlock(data[:, ex].permute(1, 2, 0, 3))
+    return ex, block, y[ex], alpha[ex]
+
+
+def _sim_coll(spec: EngineConfig) -> SimCollectives:
+    dep = spec.deployment
+    return SimCollectives(pods=dep.pods, lanes=dep.lanes,
+                          compress_pod=dep.compress_pod)
+
+
+def _as(x, device, dtype=None) -> Tensor:
+    return torch.as_tensor(x, dtype=dtype, device=device)
+
+
+def sim_epoch_dense(obj: Objective, X, y, alpha, v, lam: float, plan, bplan,
+                    spec, epoch: int, straggler_mask=None, *,
+                    dv_scale_mul: float = 1.0, device="cuda"
+                    ) -> tuple[Tensor, Tensor]:
+    """One simulated epoch over P*K virtual workers (dense path).
+
+    X (d, n), y/alpha (n,), v (d,): tensors or arrays, moved to `device`
+    (default the card; a missing GPU raises).  Partitioning comes from
+    `plan.schedule`; the epoch runs `run_epoch` with every worker's
+    sub-epoch in one solver call.  Returns (alpha, v).
+    """
+    device = resolve_device(device)
+    spec = as_engine_config(spec)
+    X, y, alpha, v = (_as(t, device, torch.float32)
+                      for t in (X, y, alpha, v))
+    n = X.shape[1]
+    B = bplan.bucket
+    ex, block, yl, al = sim_worker_data(X, y, alpha, plan, B, epoch)
+    W = plan.pods * plan.lanes
+    solver = make_local_solver(
+        spec.algo.local_solver, obj, lam * n, spec.sigma_prime(W),
+        bucket=B, device=device)
+    # dv_scale_mul < 1 damps the aggregated update (CoCoA's gamma)
+    dv_scale = (1.0 / W if spec.algo.aggregation == "averaging"
+                else 1.0) * dv_scale_mul
+    mask = None if straggler_mask is None else _as(straggler_mask, device)
+    _, _, a_new, v_new = run_epoch(
+        _sim_coll(spec), solver, spec.algo, block, yl, al, v, epoch,
+        straggler_mask=mask, redeal=False,
+        visit_shuffle=False, dv_scale=dv_scale)
+    alpha = alpha.clone()
+    alpha[ex.reshape(-1)] = a_new.reshape(-1)
+    return alpha, v_new
+
+
+def sim_epoch_sparse(obj: Objective, idx, val, y, alpha, v, lam: float,
+                     plan, bplan, spec, epoch: int, straggler_mask=None, *,
+                     dv_scale_mul: float = 1.0, device="cuda"
+                     ) -> tuple[Tensor, Tensor]:
+    """Sparse-path simulated epoch: idx/val (n, nnz) padded CSR, v (d,)."""
+    device = resolve_device(device)
+    spec = as_engine_config(spec)
+    idx = _as(idx, device, torch.int32)
+    val, y, alpha, v = (_as(t, device, torch.float32)
+                        for t in (val, y, alpha, v))
+    n = y.shape[0]
+    B = bplan.bucket
+    ex, block, yl, al = sim_worker_data((idx, val), y, alpha, plan, B, epoch)
+    W = plan.pods * plan.lanes
+    solver = make_local_solver(
+        spec.algo.local_solver, obj, lam * n, spec.sigma_prime(W),
+        bucket=B, sparse=True, device=device)
+    dv_scale = (1.0 / W if spec.algo.aggregation == "averaging"
+                else 1.0) * dv_scale_mul
+    mask = None if straggler_mask is None else _as(straggler_mask, device)
+    _, _, a_new, v_new = run_epoch(
+        _sim_coll(spec), solver, spec.algo, block, yl, al, v, epoch,
+        straggler_mask=mask, redeal=False,
+        visit_shuffle=False, dv_scale=dv_scale)
+    alpha = alpha.clone()
+    alpha[ex.reshape(-1)] = a_new.reshape(-1)
+    return alpha, v_new

@@ -1,0 +1,48 @@
+"""Kernel contract registry: every CUDA entry point and its guard rails.
+
+Each hand-written kernel registers its source under `csrc/`, the C
+entry point the wrapper calls through ctypes, the extra `nvcc` flags its
+build needs, the misfit predicate that decides whether the kernel can
+take a shape, the shared-memory model that places its buffers, and the
+TPU kernel of the reference package it replaces.  `kernels.build`
+compiles exactly the sources listed here.  References are lazy
+``"module:attr"`` strings so this module imports nothing.
+"""
+from __future__ import annotations
+
+__all__ = ["KERNEL_CONTRACTS", "SMEM_OPTIN_BYTES", "NVCC_FLAGS"]
+
+#: Dynamic shared memory one thread block may opt in to on an H100
+#: (227 KB of the SM's 256 KB; above 48 KB only after
+#: cudaFuncAttributeMaxDynamicSharedMemorySize).
+SMEM_OPTIN_BYTES = 232_448
+
+#: Flags every kernel source is built with (no fast math anywhere).
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+KERNEL_CONTRACTS: dict[str, dict] = {
+    # dense bucket kernel: (d_pad, B) tile + Gram recursion per bucket
+    "sdca_bucket.sdca_bucket_kernel": {
+        "source": "csrc/sdca_bucket.cu",
+        "entry": "sdca_bucket_launch",
+        "nvcc_extra": (),
+        "misfit": "repro_torch.kernels.ops:dense_kernel_misfit",
+        "smem_estimate": "repro_torch.kernels.sdca_bucket:smem_layout",
+        "replaces": "src/repro/kernels/sdca_bucket.py:102",
+    },
+    # sparse replicated kernel: v replicas in global memory, the
+    # bucket's working set in shared memory.  -fmad=false keeps every
+    # multiply and add separate: the kernel is bitwise equal to the
+    # plain scan, which has no fused operations.
+    "sdca_sparse_bucket.sdca_sparse_bucket_kernel": {
+        "source": "csrc/sdca_sparse_bucket.cu",
+        "entry": "sdca_sparse_bucket_launch",
+        "nvcc_extra": ("-fmad=false",),
+        "misfit": "repro_torch.kernels.ops:sparse_kernel_misfit",
+        "smem_estimate":
+            "repro_torch.kernels.sdca_sparse_bucket:smem_bytes",
+        "replaces": "src/repro/kernels/sdca_sparse_bucket.py:242",
+    },
+}

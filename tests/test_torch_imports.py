@@ -1,0 +1,49 @@
+"""The port imports neither JAX nor the reference package.
+
+Parses every module of `src/repro_torch/` and `chip_smoke.py` with
+`ast` and fails on any import of `jax` or `repro` (other than
+`repro_torch`), at any depth: inside functions too.
+"""
+import ast
+import pathlib
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _forbidden(mod: str) -> bool:
+    top = mod.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+@pytest.mark.parametrize("path", FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in FILES])
+def test_no_jax_or_reference_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if node.module and _forbidden(node.module):
+                bad.append(node.module)
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)
+              and _forbidden(str(node.args[0].value))):
+            bad.append(node.args[0].value)
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_every_kernel_source_is_registered():
+    from repro_torch.kernels.contracts import KERNEL_CONTRACTS
+    csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+    registered = {c["source"].split("/")[-1]
+                  for c in KERNEL_CONTRACTS.values()}
+    assert registered == {p.name for p in csrc.glob("*.cu")}
