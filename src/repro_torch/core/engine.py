@@ -111,15 +111,48 @@ def resolve_auto_solver(device) -> str:
     return "kernel" if torch.device(device).type == "cuda" else "torch"
 
 
+def _raise_misfit(why, path):
+    raise ValueError(f"local_solver='kernel': the {path} CUDA kernel "
+                     f"cannot run this workload [{why.code}]: {why}")
+
+
+def sparse_sharded_kernel_solver(obj: Objective, lam_n: float, sig: float,
+                                 bucket: int, model_lanes: int
+                                 ) -> LocalSolver:
+    """The feature-sharded CUDA kernels (`kops.sdca_sparse_sharded_subepoch`):
+    every (worker, lane) block in one launch per bucket.  dv (W, M, d)
+    has support only on each lane's slice; the duals are lane 0's copy
+    (every lane computes the same bits), as the mesh reads them.  A
+    shape the kernels cannot take raises with its misfit."""
+    from repro_torch.kernels import ops as kops
+
+    def solve(data, y, a, v):
+        idx, val = data
+        why = kops.sparse_kernel_misfit(idx.shape[-2], idx.shape[-1],
+                                        v.shape[-1], bucket,
+                                        model_lanes=model_lanes)
+        if why is not None:
+            _raise_misfit(why, "feature-sharded sparse")
+        a_lanes, dv = kops.sdca_sparse_sharded_subepoch(
+            obj, idx, val, y, a, v, lam_n, sig, bucket=bucket,
+            model_lanes=model_lanes, source="resident arrays")
+        return a_lanes[:, 0], dv
+    return solve
+
+
 def make_local_solver(kind: str, obj: Objective, lam_n: float, sig: float,
                       *, bucket: int = 1, sparse: bool = False,
+                      model_lanes: Optional[int] = None,
                       device="cuda") -> LocalSolver:
     """Resolve an `AlgoConfig.local_solver` name to a LocalSolver.
 
     "kernel" launches the CUDA kernel and needs a CUDA device: on the
     CPU it raises.  A shape the kernel cannot take raises with the
     misfit's code and reason; nothing routes quietly to the plain
-    version.
+    version.  `model_lanes` on the sparse path selects the
+    feature-sharded layout: each of that many lanes owns a slice of v,
+    and the solver returns dv (W, M, d), each lane's delta on its slice
+    ("kernel": the sharded kernel pair; "torch": the masked scan).
     """
     from repro_torch.kernels import ops as kops
     device = torch.device(device)
@@ -133,12 +166,33 @@ def make_local_solver(kind: str, obj: Objective, lam_n: float, sig: float,
             f"local_solver='kernel' launches a CUDA kernel and needs CUDA "
             f"tensors, got device {device}; use local_solver='torch' or "
             f"'auto' on the CPU")
+    if model_lanes is not None and not sparse:
+        raise NotImplementedError(
+            "dense feature sharding (the model-axis psum inside the "
+            "sub-epoch) is not ported yet")
     lam_t = torch.tensor(lam_n, dtype=torch.float32, device=device)
     sig_t = torch.tensor(sig, dtype=torch.float32, device=device)
 
-    def _raise_misfit(why, path):
-        raise ValueError(f"local_solver='kernel': the {path} CUDA kernel "
-                         f"cannot run this workload [{why.code}]: {why}")
+    if sparse and model_lanes is not None:
+        if kind == "kernel":
+            return sparse_sharded_kernel_solver(obj, lam_n, sig, bucket,
+                                                model_lanes)
+
+        def solve(data, y, a, v):
+            # the kernels' plain twin on the same layout: the full scan,
+            # then each lane's dv masked to its slice (without the mask
+            # the ordered model-axis sum would count dv M times)
+            idx, val = data
+            a_new, dv = sdca.sparse_local_subepoch(obj, idx, val, y, a, v,
+                                                   lam_t, sig_t)
+            d = v.shape[-1]
+            lane = torch.arange(d, device=v.device) \
+                // kops.sparse_slice_width(d, model_lanes)
+            own = lane == torch.arange(model_lanes, device=v.device)[:, None]
+            return a_new, torch.where(own, dv[:, None, :],
+                                      torch.zeros((), dtype=dv.dtype,
+                                                  device=dv.device))
+        return solve
 
     if sparse:
         if kind == "torch":
@@ -250,14 +304,21 @@ class SimCollectives:
     def broadcast_ids(self, ids: Tensor) -> Tensor:
         return ids.expand(self.wshape + tuple(ids.shape))
 
+    def _redeal_axes(self) -> tuple[int, int]:
+        """(size of the re-deal axis, lanes per re-deal group): the
+        lane axis is (re-deal axis, group), group-minor."""
+        return self.lanes, 1
+
     def redeal(self, arrs, nb_local: int, keys: np.ndarray, frac: float):
         """Stacked mirror of the all-to-all bucket re-deal: each lane
         shuffles its buckets (per-worker key), the first `exch` buckets
-        are split K ways and transposed across the lane axis."""
+        are split D ways and transposed across the re-deal axis (the
+        lanes of one group; `_redeal_axes`)."""
         P, K = self.pods, self.lanes
-        if K <= 1 or frac <= 0:
+        D, G = self._redeal_axes()
+        if D <= 1 or frac <= 0:
             return tuple(x for x, _ in arrs)
-        exch = max(int(nb_local * frac) // K * K, K)
+        exch = max(int(nb_local * frac) // D * D, D)
         perms = self._perms(keys, 0, nb_local, arrs[0][0].device)
 
         def one(x, ax):
@@ -269,10 +330,10 @@ class SimCollectives:
             idx = perms.reshape((P, K, nb_local) + (1,) * (xb.ndim - 3))
             xb = torch.take_along_dim(xb, idx, dim=2)
             head = xb[:, :, :exch]
-            # lane j receives [split_j of lane 0, ..., split_j of lane
-            # K-1] concatenated in lane order == tiled all_to_all
-            head = head.reshape((P, K, K, exch // K, rows) + rest)
-            head = head.transpose(1, 2).reshape((P, K, exch, rows) + rest)
+            # lane j of a group receives [split_j of lane 0, ..., split_j
+            # of lane D-1] concatenated in lane order == tiled all_to_all
+            head = head.reshape((P, D, G, D, exch // D, rows) + rest)
+            head = head.transpose(1, 3).reshape((P, K, exch, rows) + rest)
             xb = torch.cat([head, xb[:, :, exch:]], dim=2)
             return torch.movedim(xb.reshape(shp), 2, ax)
 
@@ -302,6 +363,41 @@ class SimCollectives:
         return v_in[0] + _ordered_sum(deltas, 0)
 
 
+@dataclasses.dataclass(frozen=True)
+class StackedMeshCollectives(SimCollectives):
+    """Every shard of a (pod, data, model) mesh stacked on one device.
+
+    The one-device mirror of the reference's `MeshCollectives` with
+    ordered collectives (its `deterministic=True`): the same worker keys
+    (per pod and example lane), the all-to-all re-deal over `data` only,
+    the lane sum as ordered adds over `data` then `model`, and the pod
+    reduce (int8 on the wire when `compress_pod`).  `lanes` is the
+    example-lane count: data x model when the model axis carries
+    examples, data when it carries v slices (`model_slices`, the
+    feature-sharded sparse layout, where a solver returns each lane's
+    slice of dv as an extra axis: (P, data, model, d)).
+    """
+    model: int = 1
+    model_slices: bool = False
+
+    @property
+    def data(self) -> int:
+        return self.lanes if self.model_slices else self.lanes // self.model
+
+    def _redeal_axes(self) -> tuple[int, int]:
+        return self.data, (1 if self.model_slices else self.model)
+
+    def lane_sum(self, dv: Tensor, compress: bool = False) -> Tensor:
+        """(P, data*model, d) or, with model slices, (P, data, model, d)
+        worker deltas -> (P, d): ordered sums over data, then model."""
+        if compress:
+            raise NotImplementedError(
+                "compress_sync (the int8 two-phase q_psum over the mesh "
+                "axes) is not ported to the stacked mesh yet")
+        dv = dv.reshape(dv.shape[0], self.data, self.model, dv.shape[-1])
+        return _ordered_sum(_ordered_sum(dv, 1), 1)
+
+
 # ---------------------------------------------------------------------------
 # The epoch program
 # ---------------------------------------------------------------------------
@@ -327,6 +423,52 @@ def _put_cols(a: Tensor, cols: Tensor, vals: Tensor) -> Tensor:
     return a.scatter(-1, cols.expand(a.shape[:-1] + cols.shape[-1:]), vals)
 
 
+def epoch_layout(coll: SimCollectives, algo: AlgoConfig, block: Block,
+                 y: Tensor, a: Tensor, epoch: int, *, redeal: bool = True,
+                 visit_shuffle: bool = True):
+    """The epoch's schedule on worker-local data: -> (block, y, a, perm).
+
+    Re-deals buckets across lanes (`coll.redeal`) and draws each
+    worker's visit order over its `nb_local` buckets, (P, K, nb_local).
+    """
+    n_local = block.n_local
+    B = algo.bucket
+    if n_local % B:
+        raise ValueError(f"n_local={n_local} not divisible by bucket={B}")
+    nb_local = n_local // B
+    if nb_local % algo.chunks:
+        raise ValueError(
+            f"chunks={algo.chunks} must divide local bucket count "
+            f"{nb_local}")
+    keys = coll.worker_keys(algo.seed, epoch)
+    if redeal:
+        arrs = block.arrs() + ((y, -1), (a, -1))
+        out = coll.redeal(arrs, nb_local, keys, algo.redeal_frac)
+        nblk = len(block.arrs())
+        block = block.rebuild(out[:nblk])
+        y, a = out[nblk], out[nblk + 1]
+    if visit_shuffle:
+        perm = coll.visit_perms(keys, nb_local, y.device)
+    else:
+        perm = coll.broadcast_ids(
+            torch.arange(nb_local, dtype=torch.int64, device=y.device))
+    return block, y, a, perm
+
+
+def chunk_inputs(algo: AlgoConfig, block: Block, y: Tensor, a: Tensor,
+                 perm: Tensor, c: int):
+    """Chunk `c` of an epoch, as its solver gets it: -> (cols, data, yc,
+    ac), cols the (P, K, per_chunk * B) local columns in visiting order."""
+    B = algo.bucket
+    per_chunk = perm.shape[-1] // algo.chunks
+    ids = perm[..., c * per_chunk:(c + 1) * per_chunk]
+    barange = torch.arange(B, dtype=torch.int64, device=y.device)
+    cols = (ids[..., None] * B + barange).reshape(
+        ids.shape[:-1] + (per_chunk * B,))
+    return (cols, block.take(cols), torch.take_along_dim(y, cols, dim=-1),
+            torch.take_along_dim(a, cols, dim=-1))
+
+
 def run_epoch(coll: SimCollectives, solver: LocalSolver, algo: AlgoConfig,
               block: Block, y: Tensor, a: Tensor, v: Tensor, epoch: int, *,
               straggler_mask: Optional[Tensor] = None, redeal: bool = True,
@@ -338,47 +480,41 @@ def run_epoch(coll: SimCollectives, solver: LocalSolver, algo: AlgoConfig,
     lane sync -> per-epoch: pod reduce.  Returns the (possibly
     re-dealt) block and labels, plus updated (alpha_local, v).
     """
-    n_local = block.n_local
-    B = algo.bucket
-    if n_local % B:
-        raise ValueError(f"n_local={n_local} not divisible by bucket={B}")
-    nb_local = n_local // B
-    chunks = algo.chunks
-    if nb_local % chunks:
-        raise ValueError(
-            f"chunks={chunks} must divide local bucket count {nb_local}")
-    per_chunk = nb_local // chunks
-    device = y.device
-
-    keys = coll.worker_keys(algo.seed, epoch)
-    if redeal:
-        arrs = block.arrs() + ((y, -1), (a, -1))
-        out = coll.redeal(arrs, nb_local, keys, algo.redeal_frac)
-        nblk = len(block.arrs())
-        block = block.rebuild(out[:nblk])
-        y, a = out[nblk], out[nblk + 1]
-    if visit_shuffle:
-        perm = coll.visit_perms(keys, nb_local, device)
-    else:
-        perm = coll.broadcast_ids(
-            torch.arange(nb_local, dtype=torch.int64, device=device))
-
+    block, y, a, perm = epoch_layout(coll, algo, block, y, a, epoch,
+                                     redeal=redeal,
+                                     visit_shuffle=visit_shuffle)
     v = coll.pod_replicate(v)
     v_in = v
-    barange = torch.arange(B, dtype=torch.int64, device=device)
-    for c in range(chunks):
-        ids = perm[..., c * per_chunk:(c + 1) * per_chunk]
-        cols = (ids[..., None] * B + barange).reshape(
-            ids.shape[:-1] + (per_chunk * B,))
-        data = block.take(cols)
-        yc = torch.take_along_dim(y, cols, dim=-1)
-        ac = torch.take_along_dim(a, cols, dim=-1)
+    for c in range(algo.chunks):
+        cols, data, yc, ac = chunk_inputs(algo, block, y, a, perm, c)
         a_new, v = _apply_chunk(coll, solver, algo, data, yc, ac, v,
                                 straggler_mask=straggler_mask,
                                 dv_scale=dv_scale)
         a = _put_cols(a, cols, a_new)
     v = coll.pod_reduce(v, v_in)
     return block, y, a, v
+
+
+def sharded_epoch(obj: Objective, spec: EngineConfig, coll: SimCollectives,
+                  block: Block, y: Tensor, a: Tensor, v: Tensor, epoch: int,
+                  *, lam: float, n_total: int, workers: int,
+                  model_lanes: Optional[int] = None, device="cuda"
+                  ) -> tuple[Block, Tensor, Tensor, Tensor]:
+    """Epoch over a physically partitioned workload (the distributed
+    layout): partition != 'static' re-deals buckets across lanes, the
+    visit order is a fresh per-worker shuffle.  `model_lanes` on a
+    sparse block selects the feature-sharded solver (each model lane
+    owns a slice of v; `coll` must then be a `StackedMeshCollectives`
+    with `model_slices`, whose lane sum reassembles the slices)."""
+    algo = spec.algo
+    solver = make_local_solver(
+        algo.local_solver, obj, lam * n_total, spec.sigma_prime(workers),
+        bucket=algo.bucket, sparse=isinstance(block, SparseBlock),
+        model_lanes=model_lanes, device=device)
+    dv_scale = 1.0 / workers if algo.aggregation == "averaging" else 1.0
+    return run_epoch(coll, solver, algo, block, y, a, v, epoch,
+                     redeal=(algo.partition != "static"),
+                     visit_shuffle=True, dv_scale=dv_scale)
 
 
 # ---------------------------------------------------------------------------
@@ -484,3 +620,19 @@ def sim_epoch_sparse(obj: Objective, idx, val, y, alpha, v, lam: float,
     alpha = alpha.clone()
     alpha[ex.reshape(-1)] = a_new.reshape(-1)
     return alpha, v_new
+
+
+def sim_sharded_sparse_epoch(obj: Objective, spec, idx, val, y, a, v,
+                             epoch: int, *, lam: float, n_total: int,
+                             device="cuda"):
+    """Distributed-layout sparse epoch on stacked sim workers (replicated
+    v): idx/val (P, K, n_local, nnz), y/a (P, K, n_local), v (d,).
+    Returns the re-dealt (idx, val, y), and (a, v)."""
+    device = resolve_device(device)
+    spec = as_engine_config(spec)
+    idx = _as(idx, device, torch.int32)
+    val, y, a, v = (_as(t, device, torch.float32) for t in (val, y, a, v))
+    blk, y, a, v = sharded_epoch(
+        obj, spec, _sim_coll(spec), SparseBlock(idx, val), y, a, v, epoch,
+        lam=lam, n_total=n_total, workers=spec.workers, device=device)
+    return blk.idx, blk.val, y, a, v

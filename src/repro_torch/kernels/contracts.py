@@ -45,4 +45,26 @@ KERNEL_CONTRACTS: dict[str, dict] = {
             "repro_torch.kernels.sdca_sparse_bucket:smem_bytes",
         "replaces": "src/repro/kernels/sdca_sparse_bucket.py:242",
     },
+    # feature-sharded pair, one launch each per bucket over every
+    # (worker, lane) block: the partial working-set gather, then the
+    # recursion and owned scatter on the exchanged working set.  The
+    # tiles, the working set and the scratch live in global memory, so
+    # neither places buffers in dynamic shared memory; -fmad=false as
+    # for the replicated kernel (the pair is bitwise equal to the scan).
+    "sdca_sparse_bucket.sdca_sparse_gather_bucket": {
+        "source": "csrc/sdca_sparse_gather_bucket.cu",
+        "entry": "sdca_sparse_gather_bucket_launch",
+        "nvcc_extra": ("-fmad=false",),
+        "misfit": "repro_torch.kernels.ops:sparse_kernel_misfit",
+        "smem_estimate": None,
+        "replaces": "src/repro/kernels/sdca_sparse_bucket.py:424",
+    },
+    "sdca_sparse_bucket.sdca_sparse_sharded_bucket": {
+        "source": "csrc/sdca_sparse_sharded_bucket.cu",
+        "entry": "sdca_sparse_sharded_bucket_launch",
+        "nvcc_extra": ("-fmad=false",),
+        "misfit": "repro_torch.kernels.ops:sparse_kernel_misfit",
+        "smem_estimate": None,
+        "replaces": "src/repro/kernels/sdca_sparse_bucket.py:453",
+    },
 }

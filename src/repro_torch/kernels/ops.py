@@ -4,8 +4,11 @@
 call-compatible with `core.sdca.dense_local_subepoch` and
 `core.sdca.sparse_local_subepoch` (with any number of leading worker
 axes), so the engine routes a whole P*K worker stack through one kernel
-launch; `dense_tiles` and `sparse_tiles` own the layout of the
-kernels' arguments (padding, tiling, the q precompute).  The misfit
+launch; `sdca_sparse_sharded_subepoch` is the feature-sharded route,
+every (worker, model lane) block in one launch per bucket.
+`dense_tiles`, `sparse_tiles` and `sharded_tiles` own the layout of the
+kernels' arguments (padding, tiling, the q precompute, the sharded
+kernel's links).  The misfit
 predicates say, on static shapes, whether a kernel
 can take a workload; their budgets are the H100's: 227 KB of opt-in
 shared memory per block, and global memory for what does not fit.
@@ -43,33 +46,59 @@ class Misfit(str):
         return self
 
 
-def sparse_solver_plan(n_local: int, nnz: int, d: int, bucket: int
-                       ) -> tuple[str, Misfit | None]:
-    """-> (route, reason): "kernel" (v replicas in global memory, the
-    bucket's working set in shared memory) or "torch" with the misfit.
+def sparse_slice_width(d: int, model_lanes: int) -> int:
+    """Per-lane slice width d_loc of the feature-sharded sparse route:
+    ceil(d_pad / M) rounded up to a multiple of 8, with d_pad = d rounded
+    up to a multiple of 8 — the reference's formula, so both packages
+    cut the same slices.  Slices are contiguous, disjoint and cover
+    [0, d) because d_loc * M >= d_pad."""
+    d_pad = _round_up(max(d, 8), 8)
+    M = max(int(model_lanes), 1)
+    return _round_up(-(-d_pad // M), 8)
 
-    d never misfits: the replicas live in global memory, where the
-    card's 50 MB L2 holds the hot entries.
+
+def sparse_solver_plan(n_local: int, nnz: int, d: int, bucket: int, *,
+                       model_lanes: int = 1) -> tuple[str, Misfit | None]:
+    """Data-parallel vs feature-parallel route on static shapes.
+
+    -> (route, reason): "kernel" (the replicated kernel: v replicas in
+    global memory, the bucket's working set in shared memory),
+    "kernel-sharded" (each of `model_lanes` lanes owns a d/M slice of v;
+    tiles, working set and scratch in global memory) or "torch" with
+    the misfit.  Prefers the replicated kernel (no per-bucket exchange)
+    when its working set fits.  The sharded route keeps everything in
+    global memory, so only bucket divisibility misfits it; d never
+    misfits (the card's 50 MB L2 holds the hot entries of v).
     """
     del d
     if bucket <= 0 or n_local % bucket:
         return "torch", Misfit(
             MisfitCode.BUCKET_INDIVISIBLE,
             f"bucket={bucket} does not divide n_local={n_local}")
-    if not sdca_sparse_bucket.fits_smem(bucket, nnz):
-        return "torch", Misfit(
-            MisfitCode.SMEM_TOTAL,
-            f"{sdca_sparse_bucket.smem_bytes(bucket, nnz)}-byte shared-"
-            f"memory working set for (B={bucket}, nnz={nnz}) exceeds the "
-            f"{sdca_sparse_bucket.SMEM_OPTIN_BYTES}-byte per-block opt-in")
-    return "kernel", None
+    if sdca_sparse_bucket.fits_smem(bucket, nnz):
+        return "kernel", None
+    if model_lanes > 1:
+        return "kernel-sharded", None
+    return "torch", Misfit(
+        MisfitCode.SMEM_TOTAL,
+        f"{sdca_sparse_bucket.smem_bytes(bucket, nnz)}-byte shared-"
+        f"memory working set for (B={bucket}, nnz={nnz}) exceeds the "
+        f"{sdca_sparse_bucket.SMEM_OPTIN_BYTES}-byte per-block opt-in "
+        f"(a model axis of 2 or more lanes would route it to the "
+        f"feature-sharded kernels)")
 
 
-def sparse_kernel_misfit(n_local: int, nnz: int, d: int,
-                         bucket: int) -> Misfit | None:
-    """Why the sparse kernel cannot run this workload, or None."""
-    route, reason = sparse_solver_plan(n_local, nnz, d, bucket)
-    return reason if route != "kernel" else None
+def sparse_kernel_misfit(n_local: int, nnz: int, d: int, bucket: int,
+                         model_lanes: int = 1) -> Misfit | None:
+    """Why no sparse kernel can run this workload, or None.
+
+    The boolean view of `sparse_solver_plan`: None when the replicated
+    or (given `model_lanes` > 1) the sharded kernels fit — every shape
+    the replicated kernel takes, the sharded pair takes too, so callers
+    on a feature-sharded layout use it as the sharded verdict."""
+    route, reason = sparse_solver_plan(n_local, nnz, d, bucket,
+                                       model_lanes=model_lanes)
+    return reason if route == "torch" else None
 
 
 def dense_kernel_misfit(d: int, n_local: int, bucket: int) -> Misfit | None:
@@ -144,17 +173,10 @@ def dense_tiles(Xl, yl, al, v0, *, bucket: int):
     return xb.float(), yb.float(), ab.float(), v0p
 
 
-def sparse_tiles(idx, val, yl, al, v0, *, bucket: int,
-                 source: str = "ad-hoc arrays"):
-    """The sparse kernel's arguments for a worker stack, as the wrapper
-    launches it: (idxb, valb (W, nb, B, nnz), yb, ab, qb (W, nb, B),
-    v0 (W, d_pad)).
-
-    idx/val: (*w, n_local, nnz) padded-CSR rows in visiting order; v0:
-    (*w, d).  Only d is padded (zero entries, never indexed).  q = sum
-    val^2 is computed over the full chunk with the plain scan's exact
-    expression, which carries the bitwise result.
-    """
+def _csr_tiles(idx, val, yl, al, *, bucket: int, source: str):
+    """(idxb, valb (W, nb, B, nnz), yb, ab, qb (W, nb, B)) of a worker
+    stack's padded-CSR rows; q = sum val^2 over the full chunk with the
+    plain scan's exact expression, which carries the bitwise result."""
     *w, n_local, nnz = idx.shape
     W = math.prod(w)
     B = bucket
@@ -162,13 +184,89 @@ def sparse_tiles(idx, val, yl, al, v0, *, bucket: int,
         raise ValueError(
             f"bucket={B} must divide the {source} chunk's row count "
             f"{n_local} (the engine hands the kernel whole buckets)")
-    d = v0.shape[-1]
-    d_pad = _round_up(max(d, 8), 8)
     nb = n_local // B
     qb = row_sq_norms(val.float()).reshape(W, nb, B)
-    v0p = torch.nn.functional.pad(v0.reshape(W, d).float(), (0, d_pad - d))
     return (idx.reshape(W, nb, B, nnz), val.reshape(W, nb, B, nnz),
-            yl.reshape(W, nb, B), al.reshape(W, nb, B), qb, v0p)
+            yl.reshape(W, nb, B), al.reshape(W, nb, B), qb)
+
+
+def sparse_tiles(idx, val, yl, al, v0, *, bucket: int,
+                 source: str = "ad-hoc arrays"):
+    """The sparse kernel's arguments for a worker stack, as the wrapper
+    launches it: (idxb, valb (W, nb, B, nnz), yb, ab, qb (W, nb, B),
+    v0 (W, d_pad)).
+
+    idx/val: (*w, n_local, nnz) padded-CSR rows in visiting order; v0:
+    (*w, d).  Only d is padded (zero entries, never indexed).
+    """
+    tiles = _csr_tiles(idx, val, yl, al, bucket=bucket, source=source)
+    W = tiles[0].shape[0]
+    d = v0.shape[-1]
+    d_pad = _round_up(max(d, 8), 8)
+    v0p = torch.nn.functional.pad(v0.reshape(W, d).float(), (0, d_pad - d))
+    return tiles + (v0p,)
+
+
+def _bucket_links(idxb):
+    """The sharded kernel's links of (W, nb, B, nnz) feature ids:
+    (W, nb, 4, B*nnz) int32 planes pos, slot, run_len, group_len.
+
+    Each bucket's entries (visiting order t = i*nnz + k) are sorted by
+    (feature id, t), stably.  pos[t] is t's place in that order;
+    slot[t] the place of the first entry of t's feature; run_len[t],
+    for the first entry of a feature in a row, the row's count of that
+    feature's entries (0 elsewhere); group_len[t], for the first entry
+    of a feature in the bucket, the bucket's count (0 elsewhere).
+    `csrc/sdca_sparse_sharded_bucket.cu` says how the kernel walks them.
+    """
+    W, nb, B, nnz = idxb.shape
+    E = B * nnz
+    ids, order = torch.sort(idxb.reshape(W * nb, E), dim=-1, stable=True)
+    place = torch.arange(E, device=ids.device).expand_as(order)
+    new_id = torch.ones_like(order, dtype=torch.bool)
+    new_id[:, 1:] = ids[:, 1:] != ids[:, :-1]
+    row = order // nnz
+    new_run = new_id.clone()
+    new_run[:, 1:] |= row[:, 1:] != row[:, :-1]
+
+    def starts_and_lengths(new):
+        first = torch.cummax(torch.where(new, place, 0), dim=-1).values
+        count = torch.zeros_like(order).scatter_add_(
+            1, first, torch.ones_like(order))
+        return first, count
+
+    first_id, id_len = starts_and_lengths(new_id)
+    _, run_len = starts_and_lengths(new_run)
+    pos = torch.empty_like(order).scatter_(1, order, place)
+    planes = (pos, torch.gather(first_id, 1, pos),
+              torch.gather(run_len, 1, pos), torch.gather(id_len, 1, pos))
+    return torch.stack(planes, 1).to(torch.int32).reshape(W, nb, 4, E)
+
+
+def sharded_tiles(idx, val, yl, al, v0, *, bucket: int, model_lanes: int,
+                  source: str = "ad-hoc arrays"):
+    """The feature-sharded kernels' arguments for a worker stack, as
+    `sdca_sparse_sharded_subepoch` launches them: (idxb, valb (Wk, nb,
+    B, nnz), yb, ab, qb (Wk, nb, B), links (Wk, nb, 4, B*nnz), v_loc
+    (Wk, M, d_loc)).
+
+    idx/val: (*w, n_local, nnz) padded-CSR rows in visiting order; v0:
+    (*w, d) each worker's replicated v.  v_loc is a fresh copy of v0,
+    zero-padded to M * d_loc and cut into the M lanes' slices
+    (`sparse_slice_width`); the sharded kernel updates it in place.
+    """
+    idxb, valb, yb, ab, qb = _csr_tiles(idx, val, yl, al, bucket=bucket,
+                                        source=source)
+    idxb = idxb.to(torch.int32).contiguous()
+    valb = valb.float().contiguous()
+    yb, ab = yb.float().contiguous(), ab.float().contiguous()
+    Wk = idxb.shape[0]
+    d = v0.shape[-1]
+    M = max(int(model_lanes), 1)
+    d_loc = sparse_slice_width(d, M)
+    v_loc = torch.nn.functional.pad(v0.reshape(Wk, d).float(),
+                                    (0, M * d_loc - d)).reshape(Wk, M, d_loc)
+    return idxb, valb, yb, ab, qb, _bucket_links(idxb), v_loc
 
 
 def sdca_bucket_subepoch(obj: Objective, Xl, yl, al, v0, lam_n, sig, *,
@@ -211,3 +309,65 @@ def sdca_sparse_bucket_subepoch(obj: Objective, idx, val, yl, al, v0,
     a_out = a_new.reshape(*w, n_local)
     dv = (v_fin[:, :d] - v0p[:, :d]) / _scalar(sig, v0.device)
     return a_out.to(al.dtype), dv.reshape(*w, d).to(v0.dtype)
+
+
+def exchange_working_set(w_loc, idxb, b: int, d_loc: int):
+    """The lanes' exchange of bucket `b`'s partial working sets: every
+    entry takes the bits of the lane that owns its feature (the
+    reference's all-gather + owner-select, as pure data movement).
+
+    w_loc: (Wk, M, B, nnz) from `sdca_sparse_gather_bucket`, the lanes
+    stacked on axis 1; idxb: (Wk, nb, B, nnz).  Returns W (Wk, M, B,
+    nnz), the same bits on every lane.
+    """
+    owner = (idxb[:, b] // d_loc).long()[:, None]        # (Wk, 1, B, nnz)
+    return torch.take_along_dim(w_loc, owner, dim=1).expand(
+        w_loc.shape).contiguous()
+
+
+def sdca_sparse_sharded_subepoch(obj: Objective, idx, val, yl, al, v0,
+                                 lam_n, sig, *, bucket: int,
+                                 model_lanes: int,
+                                 source: str = "ad-hoc arrays"):
+    """Every worker's FEATURE-SHARDED sparse sub-epoch, its `model_lanes`
+    lanes stacked on a tensor axis.
+
+    idx/val: (*w, n_local, nnz) padded-CSR rows in visiting order; v0:
+    (*w, d) each worker's replicated v, of which lane m keeps only its
+    slice [m*d_loc, (m+1)*d_loc) (`sparse_slice_width`).  Per bucket:
+    (1) one gather launch gives every lane its partial working set;
+    (2) the exchange: every entry takes the bits of the lane that owns
+    its feature (stack, owner = idx // d_loc, take_along_dim — pure
+    data movement, so the assembled working set is bitwise the
+    replicated kernel's); (3) one launch runs the bucket's recursion on
+    every lane and scatters each lane's owned entries into its slice.
+
+    Returns (a_new (*w, M, n_local), dv (*w, M, d)): every lane's duals
+    (all equal) and each lane's UNSCALED global delta, zero outside its
+    slice, so an ordered sum over the lanes gives the replicated dv.
+    """
+    _check_csr_invariant(idx, val, source)
+    *w, n_local, nnz = idx.shape
+    d = v0.shape[-1]
+    M = max(int(model_lanes), 1)
+    d_loc = sparse_slice_width(d, M)
+    idxb, valb, yb, ab, qb, links, v_loc = sharded_tiles(
+        idx, val, yl, al, v0, bucket=bucket, model_lanes=M, source=source)
+    Wk, nb, B, _ = idxb.shape
+    v_loc0 = v_loc.clone()
+    a_new = torch.empty((Wk, M, nb, B), dtype=torch.float32,
+                        device=idx.device)
+    for b in range(nb):
+        w_loc = sdca_sparse_bucket.sdca_sparse_gather_bucket(idxb, b, v_loc,
+                                                             source)
+        W = exchange_working_set(w_loc, idxb, b, d_loc)
+        a_new[:, :, b] = sdca_sparse_bucket.sdca_sparse_sharded_bucket(
+            obj, idxb, valb, yb, ab, qb, links, b, W, v_loc, float(lam_n),
+            float(sig), source)
+    dv_loc = (v_loc - v_loc0) / _scalar(sig, v0.device)
+    dv = torch.zeros((Wk, M, M, d_loc), dtype=torch.float32,
+                     device=v0.device)
+    torch.diagonal(dv, dim1=1, dim2=2).copy_(dv_loc.transpose(1, 2))
+    dv = dv.reshape(Wk, M, M * d_loc)[..., :d]
+    return (a_new.reshape(*w, M, n_local).to(al.dtype),
+            dv.reshape(*w, M, d).to(v0.dtype))

@@ -1,8 +1,9 @@
-"""Sparse bucketed SDCA sub-epoch: the CUDA kernel and its plain version.
+"""Sparse bucketed SDCA sub-epoch: the CUDA kernels and their plain versions.
 
-`sdca_sparse_bucket_kernel` runs every worker's pass over its padded-CSR
-(B x nnz) bucket tiles against a per-worker replica of v held in global
-memory: one thread block per worker, all workers in one launch
+`sdca_sparse_bucket_kernel` (replicated v) runs every worker's pass
+over its padded-CSR (B x nnz) bucket tiles against a per-worker
+replica of v held in global memory: one thread block per worker, all
+workers in one launch
 (`csrc/sdca_sparse_bucket.cu`, which replaces the reference's Pallas
 kernel `repro/kernels/sdca_sparse_bucket.py:sdca_sparse_bucket_kernel`).
 On a CPU tensor it runs `sdca_sparse_bucket_plain`; on a CUDA tensor it
@@ -13,6 +14,22 @@ sum margins left to right, form u = (sigma' delta / lam_n) * val once
 and add it entry by entry in visiting order, with no fused multiply-add
 (the source is built with -fmad=false), and both read q = sum val^2
 precomputed by `core.sdca.row_sq_norms`.
+
+Feature-sharded pair (every `model` lane owns a d_loc slice of v; the
+driver is `ops.sdca_sparse_sharded_subepoch`, which exchanges the
+lanes' partial working sets between the two launches of each bucket):
+
+  * `sdca_sparse_gather_bucket` (`csrc/sdca_sparse_gather_bucket.cu`,
+    replaces `sdca_sparse_gather_bucket` of the reference): one lane's
+    partial working set, v_slice[idx - lo] where the lane owns the
+    feature, else exact +0.0;
+  * `sdca_sparse_sharded_bucket` (`csrc/sdca_sparse_sharded_bucket.cu`,
+    replaces `sdca_sparse_sharded_bucket`): the bucket's recursion on
+    the exchanged working set, on every lane, then the scatter of the
+    entries the lane owns into its slice, in visiting order.
+
+Both are bitwise equal to their plain versions on the same card; the
+pair together is bitwise equal to the replicated scan.
 """
 from __future__ import annotations
 
@@ -26,8 +43,10 @@ from . import build
 from .contracts import SMEM_OPTIN_BYTES
 from .sdca_bucket import OBJ_CODES
 
-#: launches of the CUDA kernel (the plain version does not count)
+#: launches of each CUDA kernel (the plain versions do not count)
 launches = 0
+gather_launches = 0
+sharded_launches = 0
 
 
 def smem_bytes(B: int, nnz: int) -> int:
@@ -40,12 +59,24 @@ def fits_smem(B: int, nnz: int) -> bool:
     return smem_bytes(B, nnz) <= SMEM_OPTIN_BYTES
 
 
-def _fn():
-    fn = build.load("sdca_sparse_bucket").sdca_sparse_bucket_launch
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, f, f, i, i, p]
+def _fn(stem: str, argtypes: str):
+    """The C entry point `<stem>_launch`; argtypes: p pointer, i int,
+    f float, one letter each."""
+    fn = getattr(build.load(stem), f"{stem}_launch")
+    kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+    fn.argtypes = [kinds[c] for c in argtypes]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _check(name, t, shape, dtype, device):
+    if (tuple(t.shape) != tuple(shape) or t.dtype != dtype
+            or t.device != device or not t.is_contiguous()):
+        raise ValueError(
+            f"{name}: expected a contiguous {dtype} tensor of shape "
+            f"{tuple(shape)} on {device}, got {t.dtype} "
+            f"{tuple(t.shape)} on {t.device}"
+            + ("" if t.is_contiguous() else " (not contiguous)"))
 
 
 def sdca_sparse_bucket_plain(obj: Objective, idx, val, yb, ab, qb, v0,
@@ -98,14 +129,167 @@ def sdca_sparse_bucket_kernel(obj: Objective, idx, val, yb, ab, qb, v0,
                            for t in (val, yb, ab, qb, v0))
     a_out = torch.empty_like(ab)
     v_out = torch.empty_like(v0)
-    err = _fn()(idx.data_ptr(), val.data_ptr(), yb.data_ptr(), ab.data_ptr(),
-                qb.data_ptr(), v0.data_ptr(), a_out.data_ptr(),
-                v_out.data_ptr(), W, nb, B, nnz, d_pad, lam_n, sig,
-                OBJ_CODES[obj.name], smem_bytes(B, nnz),
-                torch.cuda.current_stream(idx.device).cuda_stream)
+    fn = _fn("sdca_sparse_bucket", "pppppppp" "iiiii" "ff" "ii" "p")
+    err = fn(idx.data_ptr(), val.data_ptr(), yb.data_ptr(), ab.data_ptr(),
+             qb.data_ptr(), v0.data_ptr(), a_out.data_ptr(),
+             v_out.data_ptr(), W, nb, B, nnz, d_pad, lam_n, sig,
+             OBJ_CODES[obj.name], smem_bytes(B, nnz),
+             torch.cuda.current_stream(idx.device).cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"sdca_sparse_bucket kernel launch failed: CUDA error {err} "
             f"(W={W}, nb={nb}, B={B}, nnz={nnz}, d_pad={d_pad})")
     launches += 1
     return a_out, v_out
+
+
+# ---------------------------------------------------------------------------
+# Feature-sharded pair: one launch of each per bucket, over every
+# (worker, lane) block; `ops.sdca_sparse_sharded_subepoch` drives them and
+# `ops.sharded_tiles` lays out their arguments.
+# ---------------------------------------------------------------------------
+
+
+def sdca_sparse_gather_plain(idxb, b: int, v_loc):
+    """The plain PyTorch version of `sdca_sparse_gather_bucket`."""
+    Wk, M, d_loc = v_loc.shape
+    idx = idxb[:, b].long()                                 # (Wk, B, nnz)
+    lo = torch.arange(M, device=idx.device).view(1, M, 1, 1) * d_loc
+    q = idx[:, None] - lo                                   # (Wk, M, B, nnz)
+    own = (q >= 0) & (q < d_loc)
+    w = torch.gather(v_loc, 2, q.clamp(0, d_loc - 1).reshape(Wk, M, -1))
+    return torch.where(own, w.reshape(q.shape),
+                       torch.zeros((), dtype=v_loc.dtype, device=idx.device))
+
+
+def sdca_sparse_gather_bucket(idxb, b: int, v_loc,
+                              source: str = "ad-hoc arrays"):
+    """Every lane's partial working set of bucket `b`.
+
+    idxb: (Wk, nb, B, nnz) int32 bucket tiles; v_loc: (Wk, M, d_loc) f32,
+    lane m of worker w owning features [m*d_loc, (m+1)*d_loc).  Returns
+    W_loc (Wk, M, B, nnz) f32: v_loc[w, m, idx - m*d_loc] where lane m
+    owns the feature, exact +0.0 elsewhere.
+    """
+    global gather_launches
+    if idxb.device.type == "cpu":
+        return sdca_sparse_gather_plain(idxb, b, v_loc)
+    if idxb.device.type != "cuda":
+        raise ValueError(
+            f"sdca_sparse_gather_bucket: unsupported device {idxb.device}")
+    Wk, nb, B, nnz = idxb.shape
+    M, d_loc = v_loc.shape[1:]
+    dev = idxb.device
+    _check("idxb", idxb, (Wk, nb, B, nnz), torch.int32, dev)
+    _check("v_loc", v_loc, (Wk, M, d_loc), torch.float32, dev)
+    if not 0 <= b < nb or Wk * M > 65_535:
+        raise ValueError(f"sparse tiles from {source}: bucket {b} of {nb}, "
+                         f"{Wk * M} (worker, lane) blocks (at most 65,535)")
+    out = torch.empty((Wk, M, B, nnz), dtype=torch.float32, device=dev)
+    fn = _fn("sdca_sparse_gather_bucket", "ppp" "iiiiii" "p")
+    err = fn(idxb.data_ptr(), v_loc.data_ptr(), out.data_ptr(), Wk * M, M,
+             nb, b, B * nnz, d_loc, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"sdca_sparse_gather_bucket kernel launch failed: CUDA error "
+            f"{err} (Wk={Wk}, M={M}, B={B}, nnz={nnz}, d_loc={d_loc})")
+    gather_launches += 1
+    return out
+
+
+def sdca_sparse_sharded_plain(obj: Objective, idxb, valb, yb, ab, qb, links,
+                              b: int, W, v_loc, lam_n: float, sig: float):
+    """The plain PyTorch version of `sdca_sparse_sharded_bucket`.
+
+    It does not read `links`: it runs the scan of `core.sdca.sparse_scan`
+    over the bucket's rows on two full-width vectors per block, one
+    holding the exchanged working set W (what the margins read) and one
+    holding the lane's slice (what the owned entries are scattered
+    into), so it checks the kernel's layout as well as its arithmetic.
+    """
+    del links
+    Wk, M, d_loc = v_loc.shape
+    G, dev = Wk * M, v_loc.device
+    nnz = idxb.shape[-1]
+    lam = torch.tensor(lam_n, dtype=torch.float32, device=dev)
+    s = torch.tensor(sig, dtype=torch.float32, device=dev)
+
+    def per_lane(t):                     # (Wk, ...) -> (G, ...)
+        return t[:, None].expand((Wk, M) + tuple(t.shape[1:])).reshape(
+            (G,) + tuple(t.shape[1:]))
+
+    idx, val = per_lane(idxb[:, b].long()), per_lane(valb[:, b])
+    y, a, q = (per_lane(t[:, b]) for t in (yb, ab, qb))
+    vw = torch.zeros((G, M * d_loc), dtype=torch.float32, device=dev)
+    vw.scatter_(1, idx.reshape(G, -1), W.reshape(G, -1))
+    vs = torch.zeros((Wk, M, M, d_loc), dtype=torch.float32, device=dev)
+    torch.diagonal(vs, dim1=1, dim2=2).copy_(v_loc.transpose(1, 2))
+    V = torch.cat([vw, vs.reshape(G, -1)])                  # (2G, d_pad)
+    a_new = torch.empty_like(a)
+    for i in range(idx.shape[1]):
+        ii, vv = idx[:, i], val[:, i]
+        wi = torch.gather(V[:G], 1, ii)
+        m = torch.zeros(G, dtype=torch.float32, device=dev)
+        for k in range(nnz):
+            m = m + wi[:, k] * vv[:, k]
+        d = obj.delta(m, a[:, i], y[:, i], s * q[:, i] / lam)
+        u = (s * d / lam)[:, None] * vv
+        ii2, u2 = torch.cat([ii, ii]), torch.cat([u, u])
+        for k in range(nnz):
+            col = ii2[:, k:k + 1]
+            V.scatter_(1, col, V.gather(1, col) + u2[:, k:k + 1])
+        a_new[:, i] = a[:, i] + d
+    vs = V[G:].reshape(Wk, M, M, d_loc)
+    v_loc.copy_(torch.diagonal(vs, dim1=1, dim2=2).transpose(1, 2))
+    return a_new.reshape(Wk, M, -1)
+
+
+def sdca_sparse_sharded_bucket(obj: Objective, idxb, valb, yb, ab, qb,
+                               links, b: int, W, v_loc, lam_n: float,
+                               sig: float, source: str = "ad-hoc arrays"):
+    """Bucket `b`'s recursion on every lane, and the owned scatter.
+
+    idxb/valb: (Wk, nb, B, nnz) int32/f32; yb/ab/qb: (Wk, nb, B) f32;
+    links: (Wk, nb, 4, B*nnz) int32 from `ops.sharded_tiles`; W: (Wk, M,
+    B, nnz) f32 the EXCHANGED working set (the same bits on every lane
+    of a worker); v_loc: (Wk, M, d_loc) f32, UPDATED IN PLACE (each lane
+    adds its owned entries' updates into its slice, in visiting order).
+    Returns a_new (Wk, M, B): every lane's copy of the bucket's duals.
+    """
+    global sharded_launches
+    if idxb.device.type == "cpu":
+        return sdca_sparse_sharded_plain(obj, idxb, valb, yb, ab, qb, links,
+                                         b, W, v_loc, lam_n, sig)
+    if idxb.device.type != "cuda":
+        raise ValueError(
+            f"sdca_sparse_sharded_bucket: unsupported device {idxb.device}")
+    Wk, nb, B, nnz = idxb.shape
+    M, d_loc = v_loc.shape[1:]
+    E, dev, f32 = B * nnz, idxb.device, torch.float32
+    for name, t, shape, dt in (
+            ("idxb", idxb, (Wk, nb, B, nnz), torch.int32),
+            ("valb", valb, (Wk, nb, B, nnz), f32),
+            ("yb", yb, (Wk, nb, B), f32), ("ab", ab, (Wk, nb, B), f32),
+            ("qb", qb, (Wk, nb, B), f32),
+            ("links", links, (Wk, nb, 4, E), torch.int32),
+            ("W", W, (Wk, M, B, nnz), f32),
+            ("v_loc", v_loc, (Wk, M, d_loc), f32)):
+        _check(name, t, shape, dt, dev)
+    if not 0 <= b < nb:
+        raise ValueError(f"sparse tiles from {source}: bucket {b} of {nb}")
+    a_out = torch.empty((Wk, M, B), dtype=f32, device=dev)
+    S = torch.empty((Wk * M, E), dtype=f32, device=dev)     # scratch
+    U = torch.empty((Wk * M, E), dtype=f32, device=dev)
+    fn = _fn("sdca_sparse_sharded_bucket", "ppppp" "pppppp" "iiiiiii" "ff"
+             "i" "p")
+    err = fn(idxb.data_ptr(), valb.data_ptr(), yb.data_ptr(), ab.data_ptr(),
+             qb.data_ptr(), links.data_ptr(), W.data_ptr(),
+             v_loc.data_ptr(), a_out.data_ptr(), S.data_ptr(), U.data_ptr(),
+             Wk * M, M, nb, b, B, nnz, d_loc, lam_n, sig,
+             OBJ_CODES[obj.name], torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"sdca_sparse_sharded_bucket kernel launch failed: CUDA error "
+            f"{err} (Wk={Wk}, M={M}, B={B}, nnz={nnz}, d_loc={d_loc})")
+    sharded_launches += 1
+    return a_out

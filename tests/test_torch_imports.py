@@ -1,8 +1,9 @@
 """The port imports neither JAX nor the reference package.
 
-Parses every module of `src/repro_torch/` and `chip_smoke.py` with
-`ast` and fails on any import of `jax` or `repro` (other than
-`repro_torch`), at any depth: inside functions too.
+Parses every module of `src/repro_torch/` (the `launch/` package
+included), `chip_smoke.py` and `tools/torch_breakdown.py` with `ast`
+and fails on any import of `jax` or `repro` (other than `repro_torch`),
+at any depth: inside functions too.
 """
 import ast
 import pathlib
@@ -13,7 +14,7 @@ pytest.importorskip("torch")
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "tools" / "torch_breakdown.py"]
 
 
 def _forbidden(mod: str) -> bool:
@@ -39,6 +40,12 @@ def test_no_jax_or_reference_imports(path):
               and _forbidden(str(node.args[0].value))):
             bad.append(node.args[0].value)
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_new_modules_are_checked():
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    assert {"src/repro_torch/launch/glm.py",
+            "src/repro_torch/launch/mesh.py"} <= names
 
 
 def test_every_kernel_source_is_registered():
