@@ -1,0 +1,135 @@
+"""ArchConfig: one dataclass describes every architecture.
+
+A copy of the reference's `configs/base.py` with `dtype` a
+`torch.dtype`.  Only the configurations whose blocks the port runs
+(`attn` and `rec`: recurrentgemma-2b and smollm-360m) are registered;
+asking for any other of the reference's architectures raises
+`NotImplementedError` (ROADMAP A16 lists what is left).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Tuple
+
+import torch
+
+#: the reference registry's other architectures, not ported yet
+UNPORTED = ("deepseek-v2-lite-16b", "granite-20b", "internlm2-20b",
+            "kimi-k2-1t-a32b", "minicpm3-4b", "phi-3-vision-4.2b",
+            "whisper-base", "xlstm-1.3b")
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                  # dense|moe|hybrid|ssm|encdec|vlm|audio
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+
+    # attention
+    attention: str = "full"      # full | mla | local
+    head_dim: int = 0            # 0 -> d_model // n_heads
+    rope_theta: float = 1e4
+    use_rope: bool = True
+    window: int = 2048           # local attention window
+
+    # MLA
+    kv_lora_rank: int = 0
+    q_lora_rank: int = 0
+    qk_nope_dim: int = 0
+    qk_rope_dim: int = 0
+    v_head_dim: int = 0
+
+    # MoE
+    n_experts: int = 0
+    n_shared_experts: int = 0
+    top_k: int = 0
+    moe_d_ff: int = 0
+    first_dense_layers: int = 0
+    moe_capacity: float = 1.25
+
+    # hybrid / ssm
+    block_pattern: Tuple[str, ...] = ()
+    rglru_dim: int = 0
+
+    # encoder-decoder
+    is_encoder_decoder: bool = False
+    n_enc_layers: int = 0
+    enc_seq: int = 1536
+
+    # modality frontend stub: None | "audio" | "vision"
+    frontend: Optional[str] = None
+    n_patches: int = 576
+
+    # misc
+    act: str = "silu"
+    norm: str = "rmsnorm"
+    gated_mlp: bool = True
+    learned_pos: bool = False
+    max_seq: int = 8192
+    dtype: torch.dtype = torch.bfloat16
+    remat: bool = True
+    attn_chunk: int = 512        # KV chunk of the blocked attention
+
+    def __post_init__(self):
+        if self.head_dim == 0 and self.n_heads:
+            object.__setattr__(self, "head_dim",
+                               self.d_model // self.n_heads)
+
+    @property
+    def padded_vocab(self) -> int:
+        """Embedding / lm_head rows padded to 512, as the reference pads
+        them (labels never hit the pad)."""
+        return -(-self.vocab // 512) * 512
+
+    def param_count(self) -> int:
+        """Total parameters (embedding + blocks + head), from the port's
+        own specs."""
+        from repro_torch.models import lm
+        from repro_torch.models.layers import tree_leaves
+        return sum(math.prod(s.shape)
+                   for s in tree_leaves(lm.param_specs(self)))
+
+
+_REGISTRY: dict = {}
+
+
+def register(cfg: ArchConfig, smoke_fn) -> None:
+    _REGISTRY[cfg.name] = (cfg, smoke_fn)
+
+
+def _lookup(name: str):
+    _ensure_loaded()
+    if name in _REGISTRY:
+        return _REGISTRY[name]
+    if name in UNPORTED:
+        raise NotImplementedError(
+            f"{name!r} is not ported to repro_torch yet: its blocks (MLA, "
+            f"MoE, xLSTM, encoder-decoder or a frontend) wait in ROADMAP "
+            f"A16")
+    raise KeyError(f"unknown architecture {name!r}; the port serves "
+                   f"{list_archs()}")
+
+
+def get_config(name: str) -> ArchConfig:
+    return _lookup(name)[0]
+
+
+def get_smoke(name: str) -> ArchConfig:
+    return _lookup(name)[1]()
+
+
+def list_archs() -> list[str]:
+    _ensure_loaded()
+    return sorted(_REGISTRY)
+
+
+def _ensure_loaded():
+    if _REGISTRY:
+        return
+    from . import recurrentgemma_2b, smollm_360m  # noqa: F401

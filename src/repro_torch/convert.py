@@ -1,18 +1,21 @@
 """Carry the reference package's state into the port.
 
 Takes plain numpy arrays and dicts only — reading the reference's
-objects (`Session.state_dict()`, `dataclasses.asdict(EngineConfig)`)
-is the caller's job — so the port never imports the reference.
+objects (`Session.state_dict()`, `dataclasses.asdict(EngineConfig)`,
+an LM's parameter tree through `jax.tree.map(np.asarray, params)`) is
+the caller's job — so the port never imports the reference.
 """
 from __future__ import annotations
 
 from typing import Any, Mapping
 
 import numpy as np
+import torch
 
 from repro_torch.core.config import EngineConfig
 
-__all__ = ["session_state", "engine_config", "SOLVER_NAMES"]
+__all__ = ["session_state", "engine_config", "lm_params_from_reference",
+           "SOLVER_NAMES"]
 
 #: reference local-solver names -> the port's
 SOLVER_NAMES = {"xla": "torch", "pallas": "kernel", "auto": "auto"}
@@ -38,3 +41,45 @@ def engine_config(fields: Mapping[str, Any]) -> EngineConfig:
         flat["local_solver"] = SOLVER_NAMES[flat["local_solver"]]
     return EngineConfig.make(**flat)
 
+
+def _tensor(a, device) -> torch.Tensor:
+    """numpy -> tensor of the same dtype; bfloat16 (ml_dtypes) arrays go
+    through their 16-bit pattern, which numpy alone cannot name."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def lm_params_from_reference(params_np: Mapping[str, Any], cfg,
+                             device="cpu") -> dict:
+    """The reference's LM parameter tree (numpy leaves) as the port's.
+
+    The reference stacks the repeated superblocks: every leaf of
+    `params_np["blocks"]` has a leading n_rep axis.  The port keeps one
+    dict per superblock, so those leaves are unstacked.  Dtypes are kept
+    as given; every leaf's shape is checked against the port's
+    `lm.param_specs(cfg)`."""
+    from repro_torch.models import lm
+    from repro_torch.models.layers import tree_map
+
+    dev = torch.device(device)
+    specs = lm.param_specs(cfg)
+    n_rep = len(specs["blocks"])
+    tree = dict(params_np)
+    stacked = tree.pop("blocks", {})
+    tree["blocks"] = [tree_map(lambda a, r=r: np.asarray(a)[r], stacked)
+                      for r in range(n_rep)]
+    if set(tree) != set(specs):
+        raise ValueError(f"parameter tree keys {sorted(tree)} != the "
+                         f"port's {sorted(specs)} for {cfg.name}")
+
+    def conv(spec, a):
+        t = _tensor(a, dev)
+        if tuple(t.shape) != spec.shape:
+            raise ValueError(f"{cfg.name}: leaf of shape {tuple(t.shape)} "
+                             f"where the port expects {spec.shape}")
+        return t
+
+    return tree_map(conv, specs, tree)      # in the port's key order

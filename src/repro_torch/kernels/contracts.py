@@ -67,4 +67,26 @@ KERNEL_CONTRACTS: dict[str, dict] = {
         "smem_estimate": None,
         "replaces": "src/repro/kernels/sdca_sparse_bucket.py:453",
     },
+    # LM serving: online-softmax attention, one block per (64-row q
+    # tile, batch x head), f32 math on the CUDA cores; its Q/K/V/P tiles
+    # are placed in dynamic shared memory by `smem_bytes`.
+    "flash_attention.flash_attention_kernel": {
+        "source": "csrc/flash_attention.cu",
+        "entry": "flash_attention_launch",
+        "nvcc_extra": (),
+        "misfit": None,
+        "smem_estimate": "repro_torch.kernels.flash_attention:smem_bytes",
+        "replaces": "src/repro/kernels/flash_attention.py:93",
+    },
+    # RG-LRU recurrence, one thread per (batch row, channel); -fmad=false
+    # keeps each multiply and add rounding as the plain version's
+    # separate elementwise operations do.
+    "rglru.rglru_kernel": {
+        "source": "csrc/rglru.cu",
+        "entry": "rglru_launch",
+        "nvcc_extra": ("-fmad=false",),
+        "misfit": None,
+        "smem_estimate": None,
+        "replaces": "src/repro/kernels/rglru.py:67",
+    },
 }

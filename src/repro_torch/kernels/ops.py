@@ -6,6 +6,8 @@ call-compatible with `core.sdca.dense_local_subepoch` and
 axes), so the engine routes a whole P*K worker stack through one kernel
 launch; `sdca_sparse_sharded_subepoch` is the feature-sharded route,
 every (worker, model lane) block in one launch per bucket.
+`rglru_scan` and `flash_attention` serve the LM: the RG-LRU recurrence
+and online-softmax attention at the reference's public layouts.
 `dense_tiles`, `sparse_tiles` and `sharded_tiles` own the layout of the
 kernels' arguments (padding, tiling, the q precompute, the sharded
 kernel's links).  The misfit
@@ -21,6 +23,8 @@ import torch
 
 from repro_torch.core.objectives import Objective
 from repro_torch.core.sdca import row_sq_norms
+from . import flash_attention as _fa
+from . import rglru as _rglru
 from . import sdca_bucket, sdca_sparse_bucket
 
 
@@ -371,3 +375,29 @@ def sdca_sparse_sharded_subepoch(obj: Objective, idx, val, yl, al, v0,
     dv = dv.reshape(Wk, M, M * d_loc)[..., :d]
     return (a_new.reshape(*w, M, n_local).to(al.dtype),
             dv.reshape(*w, M, d).to(v0.dtype))
+
+
+def rglru_scan(x, a_log, gate_a, gate_x, h0):
+    """The RG-LRU recurrence (kernels/rglru.py) over T.
+
+    x, gate_a, gate_x: (T, D) with h0 (D,), or (B, T, D) with h0 (B, D);
+    a_log: (D,).  Returns (h in x's dtype, the final state in f32 with
+    h0's shape).  The reference's wrapper returns h only; the final
+    state is its kernel's second output, which seeds the decode cache.
+    No padding or blocking of T: the CUDA kernel walks any T and D."""
+    if x.dim() == 2:
+        h, h_last = _rglru.rglru_kernel(x[None], a_log, gate_a[None],
+                                        gate_x[None], h0.reshape(1, -1))
+        return h[0], h_last[0]
+    return _rglru.rglru_kernel(x, a_log, gate_a, gate_x, h0)
+
+
+def flash_attention(q, k, v, *, kind: str = "causal", window: int = 0):
+    """(B, S, H, hd) flash attention (kernels/flash_attention.py).
+
+    q: (B, Sq, H, hd); k: (B, Sk, Hkv, hd); v: (B, Sk, Hkv, hd_v); the
+    GQA group is H // Hkv and the true kv length is Sk.  Unlike the
+    reference's wrapper nothing is padded: the CUDA kernel masks its own
+    ragged edge and takes any hd, hd_v <= 256."""
+    return _fa.flash_attention_kernel(q, k, v, kind=kind, window=window,
+                                      seq_k=k.shape[1])

@@ -1,0 +1,130 @@
+"""Shared building blocks: param specs, norms, MLPs, RoPE.
+
+Mirrors the reference's `models/layers.py` on tensors.  Two places
+where PyTorch's defaults differ from JAX's, kept as the reference has
+them: GELU is the tanh approximation (`jax.nn.gelu`'s default; the
+exact erf form differs by up to 5e-4 per element), and RoPE rotates
+split halves, not interleaved pairs.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+
+
+@dataclasses.dataclass(frozen=True)
+class CacheSpec:
+    """Shape and dtype of one decode-cache leaf (the reference's
+    `jax.ShapeDtypeStruct`)."""
+    shape: tuple[int, ...]
+    dtype: torch.dtype
+
+
+def tree_map(fn, tree, *rest):
+    """Apply `fn` to the leaves of nested dicts and lists (the port's
+    parameter and cache trees), pairing leaves of `rest` by position."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """Leaves of nested dicts and lists, in insertion order."""
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    """Shape, dtype and initializer of one parameter (no sharding: the
+    port runs on one card)."""
+    shape: tuple[int, ...]
+    dtype: torch.dtype = torch.bfloat16
+    init: str = "normal"       # normal | zeros | ones
+    scale: float | None = None  # stddev; default 1/sqrt(fan_in)
+
+    def initializer(self, gen: torch.Generator,
+                    device: torch.device) -> torch.Tensor:
+        """Draw the parameter on `device` from `gen` (a generator on that
+        device): normal in f32 times 1/sqrt(fan_in) unless `scale` is
+        set, then cast to `dtype`.  The draws are not JAX's."""
+        if self.init == "zeros":
+            return torch.zeros(self.shape, dtype=self.dtype, device=device)
+        if self.init == "ones":
+            return torch.ones(self.shape, dtype=self.dtype, device=device)
+        fan_in = self.shape[0] if len(self.shape) > 1 else self.shape[-1]
+        std = self.scale if self.scale is not None else 1.0 / math.sqrt(fan_in)
+        w = torch.randn(self.shape, generator=gen, dtype=torch.float32,
+                        device=device)
+        return (w * std).to(self.dtype)
+
+
+def materialize(specs, gen: torch.Generator, device: torch.device):
+    """Tree of ParamSpec -> tree of tensors, drawn in leaf order from
+    `gen`."""
+    return tree_map(lambda s: s.initializer(gen, device), specs)
+
+
+def rmsnorm(x: torch.Tensor, gamma: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    scale = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return ((xf * scale) * gamma.float()).to(x.dtype)
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")
+
+
+def act_fn(name: str):
+    return {"silu": F.silu, "gelu": _gelu, "relu": F.relu}[name]
+
+
+def mlp_specs(d: int, ff: int, *, gated: bool = True,
+              dtype=torch.bfloat16) -> dict:
+    """SwiGLU (gated) or plain 2-layer MLP."""
+    sp = {"w_up": ParamSpec((d, ff), dtype),
+          "w_down": ParamSpec((ff, d), dtype)}
+    if gated:
+        sp["w_gate"] = ParamSpec((d, ff), dtype)
+    return sp
+
+
+def mlp_apply(p: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    a = act_fn(act)
+    if "w_gate" in p:
+        h = a(x @ p["w_gate"]) * (x @ p["w_up"])
+    else:
+        h = a(x @ p["w_up"])
+    return h @ p["w_down"]
+
+
+def rope_freqs(head_dim: int, theta: float,
+               device=None) -> torch.Tensor:
+    # theta stays a Python scalar: a 0-d tensor made from it on the card
+    # is a blocking host-to-device copy, which stalls every decode step
+    ex = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                      device=device) / head_dim
+    return 1.0 / torch.pow(theta, ex)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 1e4) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: (..., S) integer.  Split-half
+    rotation: [x1 cos - x2 sin, x1 sin + x2 cos]."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                  # (hd/2,)
+    ang = positions[..., None].float() * freqs               # (..., S, hd/2)
+    cos = torch.cos(ang)[..., None, :]                       # over heads
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)

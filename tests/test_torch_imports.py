@@ -45,7 +45,18 @@ def test_no_jax_or_reference_imports(path):
 def test_new_modules_are_checked():
     names = {str(p.relative_to(ROOT)) for p in FILES}
     assert {"src/repro_torch/launch/glm.py",
-            "src/repro_torch/launch/mesh.py"} <= names
+            "src/repro_torch/launch/mesh.py",
+            "src/repro_torch/launch/serve.py",
+            "src/repro_torch/launch/steps.py",
+            "src/repro_torch/configs/base.py",
+            "src/repro_torch/configs/recurrentgemma_2b.py",
+            "src/repro_torch/configs/smollm_360m.py",
+            "src/repro_torch/models/layers.py",
+            "src/repro_torch/models/attention.py",
+            "src/repro_torch/models/recurrent.py",
+            "src/repro_torch/models/lm.py",
+            "src/repro_torch/kernels/flash_attention.py",
+            "src/repro_torch/kernels/rglru.py"} <= names
 
 
 def test_every_kernel_source_is_registered():

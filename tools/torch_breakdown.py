@@ -1,6 +1,6 @@
 """Where an epoch's time goes on the card, for the port's main paths.
 
-    python3 tools/torch_breakdown.py [--paths dense,sparse,sharded]
+    python3 tools/torch_breakdown.py [--paths dense,sparse,sharded,lm]
                                      [--out breakdown.json]
 
 Builds the dense HIGGS and sparse criteo-shaped sessions of
@@ -24,6 +24,16 @@ epoch it times, on chunk 0 of the next epoch's tiles: the layout
 sort) per chunk, one launch of each kernel (the sharded bucket once per
 objective) and the exchange per bucket; then one whole epoch and a
 profiled one.
+
+The `lm` path is `chip_smoke.py`'s recurrentgemma-2b serving run
+(random weights, batch 2 x 4,096 prompt tokens).  After a warm-up
+prefill it times one prefill (host clock around a synchronize), then a
+profiled one, whose device time it splits into B5 flash attention, B6
+RG-LRU, the matrix products (cuBLAS kernels) and the rest (elementwise
+and reductions), with the host's share (prefill wall time less device
+busy time); the logits product (x @ lm_head, (8,192 x 2,560) by
+(2,560 x 256,000)) alone by CUDA events; and a profiled run of 4 decode
+steps.  Not in the default `--paths`.
 
 Prints one JSON object per path and, with --out, writes them all to a
 file.  Needs one CUDA GPU and nvcc; imports nothing of JAX.
@@ -52,7 +62,7 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def profile_epoch(run_epoch, epoch_s: float) -> dict:
+def profile_epoch(run_epoch, epoch_s: float, full: bool = False) -> dict:
     """Device time by kernel over one profiled epoch.  Only the device
     (kernel) events are summed — an operator's device time repeats its
     kernels' — and the busy share is taken against `epoch_s`, an
@@ -67,15 +77,19 @@ def profile_epoch(run_epoch, epoch_s: float) -> dict:
         run_epoch()
         torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6
-    by_name = {}
+    by_name, counts = {}, {}
     for evt in prof.key_averages():
         us = _device_us(evt)
         if evt.device_type == DeviceType.CUDA and us > 0:
             by_name[evt.key] = us
+            counts[evt.key] = evt.count
     top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
     busy = sum(by_name.values())
-    return {"profiled_wall_us": wall_us, "device_us": busy,
-            "busy_share": busy / (epoch_s * 1e6), "top_device_us": top}
+    out = {"profiled_wall_us": wall_us, "device_us": busy,
+           "busy_share": busy / (epoch_s * 1e6), "top_device_us": top}
+    if full:
+        out["by_name"] = {k: (v, counts[k]) for k, v in by_name.items()}
+    return out
 
 
 def breakdown(label, make_session, kernel) -> dict:
@@ -157,10 +171,95 @@ def breakdown_sharded() -> dict:
     return rec
 
 
+#: kernel-name pieces of the matrix products (cuBLAS / CUTLASS kernels)
+GEMM_NAMES = ("gemm", "Gemm", "GEMM", "xmma", "cutlass", "nvjet", "sm90_")
+
+
+def lm_category(name: str) -> str:
+    if "flash_attention_kernel" in name:
+        return "flash_attention (B5)"
+    if "rglru_kernel" in name:
+        return "rglru (B6)"
+    if any(p in name for p in GEMM_NAMES):
+        return "matmul"
+    return "other (elementwise, reductions, copies)"
+
+
+def breakdown_lm() -> dict:
+    """Where recurrentgemma-2b's prefill time goes (and a decode step's)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.launch.serve import widen_cache
+    from repro_torch.models import lm
+    from repro_torch.models.layers import rmsnorm
+    name = "recurrentgemma-2b"
+    cfg, run = get_config(name), cs.LM_RUNS[name]
+    B, P, gen = run["batch"], run["prompt_len"], run["gen"]
+    dev = torch.device("cuda")
+    with torch.inference_mode():
+        params = steps.init_params(cfg, 0, dev)
+        toks = torch.as_tensor(np.random.default_rng(0).integers(
+            0, cfg.vocab, (B, P)), device=dev)
+
+        def prefill():
+            return lm.forward(params, toks, cfg, mode="prefill")
+
+        out = prefill()                               # warm-up
+        del out
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, cache = prefill()
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t
+        del logits
+        prof = profile_epoch(lambda: prefill(), prefill_s, full=True)
+        cats: dict[str, list] = {}
+        for kname, (us, n) in prof.pop("by_name").items():
+            c = cats.setdefault(lm_category(kname), [0.0, 0])
+            c[0] += us
+            c[1] += n
+        device_ms = {k: v[0] / 1e3 for k, v in cats.items()}
+        launches = {k: v[1] for k, v in cats.items()}
+        host_ms = prefill_s * 1e3 - prof["device_us"] / 1e3
+
+        x = rmsnorm(torch.randn((B, P, cfg.d_model), device=dev,
+                                dtype=cfg.dtype), params["final_norm"]["g"])
+        logits_ms = cs.cuda_ms(lambda: x @ params["lm_head"], 5)
+
+        cache = widen_cache(cache, cfg, B, P + gen)
+        decode = steps.make_decode_step(cfg)
+        tok = toks[:, -1:]
+        pos = [P]
+
+        def decode_steps(n=4):
+            nonlocal tok, cache
+            for _ in range(n):
+                nt, cache = decode(params, {"tokens": tok, "cache": cache,
+                                            "pos": pos[0]})
+                tok = nt[:, None]
+                pos[0] += 1
+
+        decode_steps()                                # warm-up
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        decode_steps()
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t
+        dprof = profile_epoch(decode_steps, decode_s)
+    rec = {"path": "lm", "config": name, **run,
+           "prefill_s": prefill_s, "prefill_device_ms": device_ms,
+           "prefill_launches": launches, "prefill_host_gap_ms": host_ms,
+           "logits_product_ms": logits_ms, "profile": prof,
+           "decode_4_steps_s": decode_s, "decode_profile": dprof}
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--paths", default="dense,sparse,sharded",
-                    help="comma-separated subset of dense,sparse,sharded")
+                    help="comma-separated subset of dense,sparse,sharded,lm")
     ap.add_argument("--out", type=pathlib.Path, default=None)
     args = ap.parse_args()
     paths = args.paths.split(",")
@@ -182,6 +281,8 @@ def main() -> None:
             sdca_sparse_bucket.sdca_sparse_bucket_kernel))
     if "sharded" in paths:
         recs.append(breakdown_sharded())
+    if "lm" in paths:
+        recs.append(breakdown_lm())
     out = {"card": smi, "paths": recs}
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
