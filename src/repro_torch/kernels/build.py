@@ -15,6 +15,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -91,6 +92,49 @@ def build_all() -> None:
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+
+
+def ptxas_report(log: str) -> list[dict]:
+    """One entry per compiled kernel instantiation of an `nvcc -Xptxas -v`
+    log: its (demangled) name, registers, spill stores and loads in
+    bytes, and ptxas's performance notes and warnings about it (a note
+    that names its function goes to that function's entry, wherever in
+    the log it stands)."""
+    out: dict[str, dict] = {}
+    cur = None
+    notes = []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = out.setdefault(m.group(1), {
+                "function": m.group(1), "registers": None,
+                "spill_stores": None, "spill_loads": None, "notes": []})
+            continue
+        if "warning" in line or "(C7" in line:
+            notes.append((line.split(":", 1)[-1].strip(), cur))
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    for note, at in notes:
+        named = [e for name, e in out.items() if f"'{name}'" in note]
+        for e in named or ([at] if at is not None else []):
+            e["notes"].append(note)
+    entries = list(out.values())
+    filt = shutil.which("c++filt")
+    if filt and entries:
+        names = subprocess.run([filt], input="\n".join(
+            e["function"] for e in entries), capture_output=True, text=True)
+        if names.returncode == 0:
+            for e, n in zip(entries, names.stdout.splitlines()):
+                e["function"] = n
+    return entries
 
 
 def load(stem: str) -> ctypes.CDLL:

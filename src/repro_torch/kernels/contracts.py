@@ -23,7 +23,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-Xptxas", "-v")
 
 KERNEL_CONTRACTS: dict[str, dict] = {
-    # dense bucket kernel: (d_pad, B) tile + Gram recursion per bucket
+    # dense bucket kernel: a chain warp walks each (d, B) tile's Gram
+    # recursion (the logistic bisection as a tree) while producer warps
+    # stage the next tile and its Gram; placed by `smem_layout`
     "sdca_bucket.sdca_bucket_kernel": {
         "source": "csrc/sdca_bucket.cu",
         "entry": "sdca_bucket_launch",
@@ -67,15 +69,29 @@ KERNEL_CONTRACTS: dict[str, dict] = {
         "smem_estimate": None,
         "replaces": "src/repro/kernels/sdca_sparse_bucket.py:453",
     },
-    # LM serving: online-softmax attention, one block per (64-row q
-    # tile, batch x head), f32 math on the CUDA cores; its Q/K/V/P tiles
-    # are placed in dynamic shared memory by `smem_bytes`.
+    # LM serving, f32 inputs: online-softmax attention, one block per
+    # (64-row q tile, batch x head), f32 math on the CUDA cores; its
+    # Q/K/V/P tiles are placed in dynamic shared memory by `smem_bytes`.
     "flash_attention.flash_attention_kernel": {
         "source": "csrc/flash_attention.cu",
         "entry": "flash_attention_launch",
         "nvcc_extra": (),
         "misfit": None,
         "smem_estimate": "repro_torch.kernels.flash_attention:smem_bytes",
+        "replaces": "src/repro/kernels/flash_attention.py:93",
+    },
+    # LM serving, bf16 inputs (the served configs): the same function on
+    # the bf16 tensor cores, one block of four (hd 64, with a TMA
+    # producer warp) or two (hd 256) consumer warpgroups per (q tile,
+    # batch x head); wgmma exists only for sm_90a, which NVCC_FLAGS
+    # target.  Its Q tile and K/V ring are placed by `smem_bytes_tc`.
+    "flash_attention.flash_attention_tc": {
+        "source": "csrc/flash_attention_tc.cu",
+        "entry": "flash_attention_tc_launch",
+        "nvcc_extra": (),
+        "misfit": None,
+        "smem_estimate":
+            "repro_torch.kernels.flash_attention:smem_bytes_tc",
         "replaces": "src/repro/kernels/flash_attention.py:93",
     },
     # RG-LRU recurrence, one thread per (batch row, channel); -fmad=false

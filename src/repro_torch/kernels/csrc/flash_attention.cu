@@ -1,13 +1,15 @@
-// Online-softmax (flash) attention forward on Hopper (sm_90a), f32 math.
+// Online-softmax (flash) attention forward on Hopper (sm_90a), f32 math
+// on the CUDA cores.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py,
 // flash_attention_kernel (body _kernel): for every (batch, head) and
 // query row, o = softmax(scale * q k^T + mask) v with the running
 // (max m, sum l, accumulator acc) state, so no score row ever reaches
 // device memory.  Masks: causal (kpos <= qpos), local (causal and
-// qpos - kpos < window) or full; keys at kpos >= seq_k (padding) are
-// masked; a kv tile that is masked for every row of the q tile is never
-// visited.  GQA: head h reads kv head h / (H / Hkv).  Masked scores are
+// qpos - kpos < window) or full; keys past Sk in the last kv tile are
+// masked (the ragged edge; kv is never padded); a kv tile that is
+// masked for every row of the q tile is never visited.  GQA: head h
+// reads kv head h / (H / Hkv).  Masked scores are
 // the reference's finite -1e30, so a row's state resets exactly
 // (exp(-1e30 - m) == 0) once it meets its first unmasked key.  A row
 // with no unmasked key at all is undefined, as in the reference.
@@ -16,22 +18,23 @@
 // o (B, Sq, H, hd_v), all contiguous, f32 or bf16 (one source,
 // templated on the element type); o in q's type.  hd, hd_v <= 256.
 // Every score, max, sum, exponential and product is f32 on the CUDA
-// cores (no tensor cores, no TF32): the kernel is held to the plain
-// PyTorch version within the reference's own tolerance.
+// cores (no tensor cores: an f32 tensor-core product would be TF32,
+// which the port does not use); the kernel is held to the plain PyTorch
+// version within the reference's own tolerance.  The wrapper sends it
+// all f32 inputs and the bf16 head widths that flash_attention_tc.cu
+// (wgmma on the bf16 tensor cores, hd = hd_v in {64, 256}) does not take.
 //
-// What bounds it on this card: operations.  recurrentgemma-2b's prefill
-// (B 2, S 4,096, 10 heads, MQA, hd 256, window 2,048) needs ~1.3e11
-// flops against ~0.1 GB of q/k/v/o; at the bf16 tensor-core peak that
-// is ~0.13 ms, far below this kernel's f32 FMA rate.
+// What bounds it on this card: operations, at the f32 CUDA-core rate
+// (67 TFLOP/s): 2 (hd + hd_v) per unmasked (query, key) pair.
 //
-// What the design does about it (simple first, no wgmma/TMA yet): one
-// block of 256 threads per (64-row q tile, batch x head); the block
-// walks only the kv tiles its mask can reach, 64 keys at a time.  Each
-// thread owns a 4 x 4 patch of the 64 x 64 score tile (rows ty + 16 i,
-// columns tx + 16 j) and a 4 x (16 NJ) patch of the output
-// accumulator in registers, so every shared-memory load feeds 2-4
-// FMAs.  Row max and row sum reduce over the 16 threads of a row with
-// warp shuffles (a row's 16 threads are one half-warp).
+// What the design does about it: one block of 256 threads per (64-row
+// q tile, batch x head); the block walks only the kv tiles its mask
+// can reach, 64 keys at a time.  Each thread owns a 4 x 4 patch of the
+// 64 x 64 score tile (rows ty + 16 i, columns tx + 16 j) and a
+// 4 x (16 NJ) patch of the output accumulator in registers, so every
+// shared-memory load feeds 2-4 FMAs.  Row max and row sum reduce over
+// the 16 threads of a row with warp shuffles (a row's 16 threads are one
+// half-warp).
 //
 // Shared memory (f32, whatever the input type; +1 pads keep the
 // strided reads free of bank conflicts):
@@ -70,7 +73,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, int Sq,
                        int Sk, int H, int Hkv, int hd, int hd_v, int kind,
-                       int window, int seq_k, float scale) {
+                       int window, float scale) {
   extern __shared__ float smem[];
   const int QS = hd + 1, KS = kBK + 1, PS = kBK + 1;
   float* Qs = smem;              // kBQ x QS
@@ -107,7 +110,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // the kv tiles the q tile's mask reaches (the reference's tile skip)
   const int q_end = q_start + kBQ - 1;
-  int kt_end = (min(seq_k, Sk) + kBK - 1) / kBK;
+  int kt_end = (Sk + kBK - 1) / kBK;
   if (kind != kFull) kt_end = min(kt_end, q_end / kBK + 1);
   int kt_begin = 0;
   if (kind == kLocal && q_start - window + 1 > 0)
@@ -150,7 +153,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < kCJ; ++j) {
         const int kp = k_start + tx + kTX * j;
-        bool ok = kp < seq_k;
+        bool ok = kp < Sk;
         if (kind == kCausal) ok = ok && qp >= kp;
         else if (kind == kLocal) ok = ok && qp >= kp && qp - kp < window;
         s[i][j] = ok ? s[i][j] * scale : kNegInf;
@@ -208,8 +211,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int NJ>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Sq, int Sk, int H, int Hkv, int hd, int hd_v, int kind,
-           int window, int seq_k, float scale, int smem,
-           cudaStream_t stream) {
+           int window, float scale, int smem, cudaStream_t stream) {
   auto fn = flash_attention_kernel<T, NJ>;
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -218,23 +220,22 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   fn<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, H, Hkv, hd,
-      hd_v, kind, window, seq_k, scale);
+      hd_v, kind, window, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 int launch_nj(const void* q, const void* k, const void* v, void* o, int B,
               int Sq, int Sk, int H, int Hkv, int hd, int hd_v, int kind,
-              int window, int seq_k, float scale, int smem,
-              cudaStream_t stream) {
+              int window, float scale, int smem, cudaStream_t stream) {
   if (hd_v <= 4 * kTX)
     return launch<T, 4>(q, k, v, o, B, Sq, Sk, H, Hkv, hd, hd_v, kind,
-                        window, seq_k, scale, smem, stream);
+                        window, scale, smem, stream);
   if (hd_v <= 8 * kTX)
     return launch<T, 8>(q, k, v, o, B, Sq, Sk, H, Hkv, hd, hd_v, kind,
-                        window, seq_k, scale, smem, stream);
+                        window, scale, smem, stream);
   return launch<T, 16>(q, k, v, o, B, Sq, Sk, H, Hkv, hd, hd_v, kind,
-                       window, seq_k, scale, smem, stream);
+                       window, scale, smem, stream);
 }
 
 }  // namespace
@@ -244,8 +245,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int Sq,
                                       int Sk, int H, int Hkv, int hd,
                                       int hd_v, int kind, int window,
-                                      int seq_k, float scale, int dtype,
-                                      int smem, void* stream) {
+                                      float scale, int dtype, int smem,
+                                      void* stream) {
   if (B <= 0 || Sq <= 0 || H <= 0) return cudaSuccess;
   if (hd <= 0 || hd > 256 || hd_v <= 0 || hd_v > 256 || Hkv <= 0 ||
       H % Hkv != 0)
@@ -253,9 +254,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_nj<float>(q, k, v, o, B, Sq, Sk, H, Hkv, hd, hd_v, kind,
-                            window, seq_k, scale, smem, s);
+                            window, scale, smem, s);
   if (dtype == 1)
     return launch_nj<__nv_bfloat16>(q, k, v, o, B, Sq, Sk, H, Hkv, hd, hd_v,
-                                    kind, window, seq_k, scale, smem, s);
+                                    kind, window, scale, smem, s);
   return cudaErrorInvalidValue;
 }

@@ -27,7 +27,16 @@ __device__ __forceinline__ float hinge_delta(float m, float a, float y,
   return y * b - a;
 }
 
-// Guarded bisection on g'(d) = y log(b/(1-b)) + m + q d, b = (a+d) y.
+// g'(d) = y log(b/(1-b)) + m + q d at b = mid, d = (b - b0) y.  The one
+// expression of both forms of the bisection (the serial loop below and
+// the dense kernel's tree walk), so the compiler contracts it alike.
+__device__ __forceinline__ float logistic_gprime(float mid, float b0,
+                                                 float m, float y, float q) {
+  const float d = (mid - b0) * y;
+  return y * (logf(mid) - log1pf(-mid)) + m + q * d;
+}
+
+// Guarded bisection on g'(d), b = (a+d) y.
 __device__ __forceinline__ float logistic_delta(float m, float a, float y,
                                                 float q) {
   const float b0 = a * y;
@@ -36,8 +45,7 @@ __device__ __forceinline__ float logistic_delta(float m, float a, float y,
 #pragma unroll 1
   for (int it = 0; it < BISECT_ITERS; ++it) {
     const float mid = 0.5f * (lo + hi);
-    const float d = (mid - b0) * y;
-    const float gp = y * (logf(mid) - log1pf(-mid)) + m + q * d;
+    const float gp = logistic_gprime(mid, b0, m, y, q);
     if (gp * y < 0.0f) {
       lo = mid;
     } else {

@@ -13,26 +13,290 @@
 // bucket) and the Gram FLOPs are far below what the card could move in
 // that time.
 //
-// What the design does about it: one thread block per worker, all P*K
-// workers in one launch (the TPU's sequential "arbitrary" grid becomes a
-// loop over buckets inside the block), so the W chains run side by side
-// on W SMs.  The block's threads share the parallel work of a bucket
-// (tile staging, margins, the B*B Gram, the v update, and the per-step
-// margin update m += coef*G_i); one thread runs the delta of each
-// coordinate.  The tile and G sit in shared memory when they fit the
-// 227 KB opt-in, else they are read from global memory (G from a
-// (W, B, B) scratch the wrapper allocates).  Each worker owns its v
-// replica in v_out, so no two blocks write the same address.  fp32 FMA
-// on the CUDA cores: no tensor cores, no TF32.
+// What the design does about it: one block per worker, all W workers in
+// one launch, so the W chains run side by side on W SMs; inside a block
+// the chain is kept short and nothing else waits on it.
+//  * One chain warp owns the chain and the worker's v (in shared memory
+//    when the tiles are, else in v_out).  It holds the bucket's margins
+//    (margin j in lane j % 32, slot j / 32), computes m0 = X_b^T v and
+//    walks the B coordinates with m_j += c G_ij in registers.  No block
+//    barrier per coordinate.
+//  * kProducerWarps producer warps stage bucket b+1's tile, a and y into
+//    the other of two shared-memory stages with cp.async and compute its
+//    Gram matrix and q_j = sigma' G_jj / lam_n (neither depends on v)
+//    while the chain works on bucket b.  One named-barrier hand-off per
+//    bucket and stage (FULL: producers arrive, the chain waits; EMPTY:
+//    the reverse).
+//  * The logistic delta is the serial 40-step bisection walked as a tree
+//    of kTreeLevels levels: in each round chain lane t evaluates g' at
+//    the midpoint of one node of the next levels (every node of them
+//    once), replaying the node's path from the round's (lo, hi) with the
+//    serial code's mid = 0.5f*(lo+hi), and the ballot of the signs gives
+//    every lane the same walk down to the round's new (lo, hi), which
+//    the lane of the path's deepest node hands out.  Every evaluated
+//    point is one the serial loop evaluates, so the final interval is
+//    the serial one bit for bit, in 40 / kTreeLevels = 8 dependent
+//    evaluations instead of 40.  The warp's lanes hold the 31 nodes of 5
+//    levels, and a round needs shuffles alone.  Ridge and hinge are a few
+//    operations: every lane computes the same value.
+// Every sum (m0_j over f, G_ij over f, (X_b delta)_f over i) runs in the
+// same order as the plain loop of the earlier one-thread-per-delta
+// kernel.  The tile and G sit in shared memory when two stages of them
+// fit the 227 KB opt-in, else they are read from global memory (G from
+// a (W, 2, B, B) scratch the wrapper allocates).  Each worker owns its v
+// replica in v_out, so no two blocks write the same address.  fp32 on
+// the CUDA cores: no tensor cores, no TF32.
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "objectives.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+// levels of the bisection tree walked per round: one warp's lanes hold
+// its 2^5 - 1 nodes (deeper trees on more warps measured slower, PERF.md)
+constexpr int kTreeLevels = 5;
+static_assert(BISECT_ITERS % kTreeLevels == 0, "whole rounds");
+constexpr int kChainThreads = 32;
+constexpr int kProducerWarps = 3;
+constexpr int kProducers = 32 * kProducerWarps;
+constexpr int kThreads = kChainThreads + kProducers;
+constexpr int kStages = 2;
+// named barriers (0 is __syncthreads)
+constexpr int kBarProducers = 1;
+constexpr int kBarFull = 2;    // + stage
+constexpr int kBarEmpty = 4;   // + stage
+
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_all;\n" ::: "memory");
+}
+
+// One round of the walk: (lo, hi) -> the interval kTreeLevels serial
+// steps later.  Node n (heap order: the root is 1, n's children are 2n
+// and 2n+1) is lane n - 1; lane 31 holds none (node 0).
+__device__ __forceinline__ void tree_round(float& lo, float& hi, float m,
+                                           float b0, float y, float q,
+                                           int node, int depth) {
+  // this lane's node: replay its path from the round's interval
+  float l = lo, h = hi;
+#pragma unroll
+  for (int lev = kTreeLevels - 2; lev >= 0; --lev) {
+    if (lev < depth) {
+      const float mid = 0.5f * (l + h);
+      if ((node >> lev) & 1) {
+        l = mid;
+      } else {
+        h = mid;
+      }
+    }
+  }
+  const float mid = 0.5f * (l + h);
+  const float gp = logistic_gprime(mid, b0, m, y, q);
+  const bool up = depth < kTreeLevels && gp * y < 0.0f;
+  // the new interval, should this node be the path's deepest
+  const float nlo = up ? mid : l;
+  const float nhi = up ? h : mid;
+  const uint32_t bal = __ballot_sync(0xffffffffu, up);
+  int j = 1;
+#pragma unroll
+  for (int s = 0; s < kTreeLevels; ++s) j = 2 * j + ((bal >> (j - 1)) & 1u);
+  const int src = (j >> 1) - 1;            // the deepest node's lane
+  lo = __shfl_sync(0xffffffffu, nlo, src);
+  hi = __shfl_sync(0xffffffffu, nhi, src);
+}
+
+// The logistic delta of objectives.cuh (serial bisection) as a tree walk
+// of kTreeLevels levels a round by the chain warp; every lane returns the
+// same value.
+__device__ __forceinline__ float logistic_delta_tree(float m, float a,
+                                                     float y, float q,
+                                                     int lane) {
+  const float b0 = a * y;
+  float lo = (float)1e-6;
+  float hi = (float)(1.0 - 1e-6);
+  const int node = lane < 31 ? lane + 1 : 0;
+  const int depth = node > 0 ? 31 - __clz(node) : kTreeLevels;
+#pragma unroll 1
+  for (int r = 0; r < BISECT_ITERS / kTreeLevels; ++r)
+    tree_round(lo, hi, m, b0, y, q, node, depth);
+  const float b = 0.5f * (lo + hi);
+  return (b - b0) * y;
+}
 
 template <int OBJ>
+__device__ __forceinline__ float chain_delta(float m, float a, float y,
+                                             float q, int lane) {
+  if constexpr (OBJ == OBJ_LOGISTIC) {
+    return logistic_delta_tree(m, a, y, q, lane);
+  } else {
+    return obj_delta<OBJ>(m, a, y, q);
+  }
+}
+
+// Shared memory, in floats:
+//   del (B) | per stage s: a (B), y (B), q (B) | v (d_pad) and per stage
+//   x (d_pad*B) when x_in_smem | per stage G (B*B) when g_in_smem
+struct Smem {
+  float* del;
+  float* ayq;      // stage s at ayq + 3*B*s
+  float* v;        // nullptr when v lives in v_out
+  float* x;        // stage s at x + d_pad*B*s; nullptr: global tiles
+  float* G;        // stage s at G + B*B*s (shared or global scratch)
+};
+
+__device__ __forceinline__ Smem carve(float* smem, float* g_scratch, int w,
+                                      int d_pad, int B, int x_in_smem,
+                                      int g_in_smem) {
+  Smem s;
+  s.del = smem;
+  s.ayq = s.del + B;
+  float* p = s.ayq + 3 * B * kStages;
+  s.v = s.x = nullptr;
+  if (x_in_smem) {
+    s.v = p;
+    p += d_pad;
+    p += (4 - (reinterpret_cast<uintptr_t>(p) / 4) % 4) % 4;  // 16 B align
+    s.x = p;
+    p += (size_t)kStages * d_pad * B;
+  }
+  s.G = g_in_smem ? p : g_scratch + (size_t)w * kStages * B * B;
+  return s;
+}
+
+__device__ void producer(const Smem& sm, const float* __restrict__ xw,
+                         const float* __restrict__ yb,
+                         const float* __restrict__ ab, size_t row0, int nb,
+                         int d_pad, int B, float lam_n, float sig) {
+  const int ptid = threadIdx.x - kChainThreads;
+  const size_t tile = (size_t)d_pad * B;
+  const bool vec = (tile % 4 == 0) &&
+                   (reinterpret_cast<uintptr_t>(xw) % 16 == 0);
+  for (int b = 0; b < nb; ++b) {
+    const int st = b % kStages;
+    if (b >= kStages) bar_sync(kBarEmpty + st, kThreads);
+    const float* xg = xw + (size_t)b * tile;
+    float* ayq = sm.ayq + 3 * B * st;
+    const size_t row = row0 + (size_t)b * B;
+    for (int i = ptid; i < B; i += kProducers) {
+      cp_async4(ayq + i, ab + row + i);
+      cp_async4(ayq + B + i, yb + row + i);
+    }
+    const float* x = xg;
+    if (sm.x != nullptr) {
+      float* xs = sm.x + tile * st;
+      if (vec) {
+        for (size_t t = 4 * (size_t)ptid; t < tile; t += 4 * kProducers)
+          cp_async16(xs + t, xg + t);
+      } else {
+        for (size_t t = ptid; t < tile; t += kProducers)
+          cp_async4(xs + t, xg + t);
+      }
+      x = xs;
+    }
+    cp_async_wait_all();
+    bar_sync(kBarProducers, kProducers);  // every producer's copies landed
+    float* G = sm.G + (size_t)B * B * st;
+    for (int t = ptid; t < B * B; t += kProducers) {
+      const int i = t / B, j = t - (t / B) * B;
+      float s = 0.0f;
+      for (int f = 0; f < d_pad; ++f) {
+        s += x[(size_t)f * B + i] * x[(size_t)f * B + j];
+      }
+      G[t] = s;
+      if (i == j) ayq[2 * B + i] = sig * s / lam_n;
+    }
+    __threadfence_block();
+    bar_arrive(kBarFull + st, kThreads);
+  }
+}
+
+template <int OBJ, int MPL>
+__device__ void chain(const Smem& sm, const float* __restrict__ xw,
+                      const float* __restrict__ v0w,
+                      float* __restrict__ v_outw, float* __restrict__ a_out,
+                      size_t row0, int nb, int d_pad, int B, float lam_n,
+                      float sig) {
+  const int t = threadIdx.x, lane = t;
+  const size_t tile = (size_t)d_pad * B;
+  float* v = sm.v != nullptr ? sm.v : v_outw;
+  for (int f = t; f < d_pad; f += kChainThreads) v[f] = v0w[f];
+  __syncwarp();
+  const float vscale = sig / lam_n;
+  for (int b = 0; b < nb; ++b) {
+    const int st = b % kStages;
+    bar_sync(kBarFull + st, kThreads);
+    const float* x = sm.x != nullptr ? sm.x + tile * st : xw + (size_t)b * tile;
+    const float* G = sm.G + (size_t)B * B * st;
+    const float* ayq = sm.ayq + 3 * B * st;
+
+    // margins at bucket entry, one coordinate per lane and slot
+    float m[MPL];
+#pragma unroll
+    for (int k = 0; k < MPL; ++k) {
+      const int j = lane + 32 * k;
+      float s = 0.0f;
+      if (j < B) {
+        for (int f = 0; f < d_pad; ++f) s += x[(size_t)f * B + j] * v[f];
+      }
+      m[k] = s;
+    }
+
+    // the serial recursion over the bucket's coordinates
+    for (int i = 0; i < B; ++i) {
+      float mi_own = m[0];
+#pragma unroll
+      for (int k = 1; k < MPL; ++k) {
+        if (k == (i >> 5)) mi_own = m[k];
+      }
+      const float mi = __shfl_sync(0xffffffffu, mi_own, i & 31);
+      const float d = chain_delta<OBJ>(mi, ayq[i], ayq[B + i],
+                                       ayq[2 * B + i], lane);
+      if (t == 0) sm.del[i] = d;
+      const float c = sig * d / lam_n;
+#pragma unroll
+      for (int k = 0; k < MPL; ++k) {
+        const int j = lane + 32 * k;
+        if (j < B) m[k] += c * G[i * B + j];
+      }
+    }
+    __syncwarp();
+
+    // v += (sigma'/lam_n) X_b delta;  alpha_b += delta
+    for (int f = t; f < d_pad; f += kChainThreads) {
+      float s = 0.0f;
+      for (int i = 0; i < B; ++i) s += x[(size_t)f * B + i] * sm.del[i];
+      v[f] = v[f] + vscale * s;
+    }
+    const size_t row = row0 + (size_t)b * B;
+    for (int i = t; i < B; i += kChainThreads)
+      a_out[row + i] = ayq[i] + sm.del[i];
+    __syncwarp();
+    if (b + kStages < nb) bar_arrive(kBarEmpty + st, kThreads);
+  }
+  if (sm.v != nullptr) {
+    for (int f = t; f < d_pad; f += kChainThreads) v_outw[f] = v[f];
+  }
+}
+
+template <int OBJ, int MPL>
 __global__ void __launch_bounds__(kThreads)
 sdca_bucket_kernel(const float* __restrict__ xb, const float* __restrict__ yb,
                    const float* __restrict__ ab, const float* __restrict__ v0,
@@ -41,93 +305,56 @@ sdca_bucket_kernel(const float* __restrict__ xb, const float* __restrict__ yb,
                    float lam_n, float sig, int x_in_smem, int g_in_smem) {
   extern __shared__ float smem[];
   const int w = blockIdx.x;
-  const int tid = threadIdx.x;
-  float* m_s = smem;                 // (B,) running margins
-  float* del_s = m_s + B;            // (B,) deltas
-  float* coef_s = del_s + B;         // (4,) broadcast slot
-  float* x_s = coef_s + 4;           // (d_pad, B) tile when x_in_smem
-  float* G = g_in_smem ? x_s + (x_in_smem ? (size_t)d_pad * B : 0)
-                       : g_scratch + (size_t)w * B * B;
-
+  const Smem sm = carve(smem, g_scratch, w, d_pad, B, x_in_smem, g_in_smem);
   const size_t tile = (size_t)d_pad * B;
   const float* xw = xb + (size_t)w * nb * tile;
-  float* v = v_out + (size_t)w * d_pad;
-  for (int f = tid; f < d_pad; f += blockDim.x) {
-    v[f] = v0[(size_t)w * d_pad + f];
-  }
-  const float vscale = sig / lam_n;
-  __syncthreads();
-
-  for (int b = 0; b < nb; ++b) {
-    const float* xg = xw + (size_t)b * tile;
-    const float* x = xg;
-    if (x_in_smem) {
-      for (size_t t = tid; t < tile; t += blockDim.x) x_s[t] = xg[t];
-      x = x_s;
-      __syncthreads();
-    }
-    // margins at bucket entry and the bucket Gram matrix
-    for (int i = tid; i < B; i += blockDim.x) {
-      float s = 0.0f;
-      for (int f = 0; f < d_pad; ++f) s += x[(size_t)f * B + i] * v[f];
-      m_s[i] = s;
-    }
-    for (int t = tid; t < B * B; t += blockDim.x) {
-      const int i = t / B, j = t - (t / B) * B;
-      float s = 0.0f;
-      for (int f = 0; f < d_pad; ++f) {
-        s += x[(size_t)f * B + i] * x[(size_t)f * B + j];
-      }
-      G[t] = s;
-    }
-    __syncthreads();
-
-    // the serial recursion over the bucket's coordinates
-    const size_t row = ((size_t)w * nb + b) * B;
-    for (int i = 0; i < B; ++i) {
-      if (tid == 0) {
-        const float q = sig * G[i * B + i] / lam_n;
-        const float d = obj_delta<OBJ>(m_s[i], ab[row + i], yb[row + i], q);
-        del_s[i] = d;
-        coef_s[0] = sig * d / lam_n;
-      }
-      __syncthreads();
-      const float c = coef_s[0];
-      for (int j = tid; j < B; j += blockDim.x) m_s[j] += c * G[i * B + j];
-      __syncthreads();
-    }
-
-    // v += (sigma'/lam_n) X_b delta;  alpha_b += delta
-    for (int f = tid; f < d_pad; f += blockDim.x) {
-      float s = 0.0f;
-      for (int i = 0; i < B; ++i) s += x[(size_t)f * B + i] * del_s[i];
-      v[f] = v[f] + vscale * s;
-    }
-    for (int i = tid; i < B; i += blockDim.x) {
-      a_out[row + i] = ab[row + i] + del_s[i];
-    }
-    __syncthreads();
+  const size_t row0 = (size_t)w * nb * B;
+  if (threadIdx.x < kChainThreads) {
+    chain<OBJ, MPL>(sm, xw, v0 + (size_t)w * d_pad,
+                    v_out + (size_t)w * d_pad, a_out, row0, nb, d_pad, B,
+                    lam_n, sig);
+  } else {
+    producer(sm, xw, yb, ab, row0, nb, d_pad, B, lam_n, sig);
   }
 }
 
-template <int OBJ>
+template <int OBJ, int MPL>
 cudaError_t launch(const float* xb, const float* yb, const float* ab,
                    const float* v0, float* a_out, float* v_out,
                    float* g_scratch, int W, int nb, int d_pad, int B,
                    float lam_n, float sig, int x_in_smem, int g_in_smem,
                    int smem_bytes, cudaStream_t stream) {
+  auto fn = sdca_bucket_kernel<OBJ, MPL>;
   cudaError_t err = cudaFuncSetAttribute(
-      sdca_bucket_kernel<OBJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes);
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return err;
-  sdca_bucket_kernel<OBJ><<<W, kThreads, smem_bytes, stream>>>(
-      xb, yb, ab, v0, a_out, v_out, g_scratch, nb, d_pad, B, lam_n, sig,
-      x_in_smem, g_in_smem);
+  fn<<<W, kThreads, smem_bytes, stream>>>(xb, yb, ab, v0, a_out, v_out,
+                                          g_scratch, nb, d_pad, B, lam_n,
+                                          sig, x_in_smem, g_in_smem);
   return cudaGetLastError();
+}
+
+template <int OBJ>
+cudaError_t launch_mpl(const float* xb, const float* yb, const float* ab,
+                       const float* v0, float* a_out, float* v_out,
+                       float* g_scratch, int W, int nb, int d_pad, int B,
+                       float lam_n, float sig, int x_in_smem, int g_in_smem,
+                       int smem_bytes, cudaStream_t s) {
+#define SDCA_LAUNCH(M)                                                     \
+  return launch<OBJ, M>(xb, yb, ab, v0, a_out, v_out, g_scratch, W, nb,    \
+                        d_pad, B, lam_n, sig, x_in_smem, g_in_smem,        \
+                        smem_bytes, s)
+  if (B <= 32) SDCA_LAUNCH(1);
+  if (B <= 64) SDCA_LAUNCH(2);
+  if (B <= 128) SDCA_LAUNCH(4);
+  if (B <= 256) SDCA_LAUNCH(8);
+  SDCA_LAUNCH(16);
+#undef SDCA_LAUNCH
 }
 
 }  // namespace
 
+// B <= 512 (16 margins per lane).  Returns a cudaError_t (0 on success).
 extern "C" int sdca_bucket_launch(const float* xb, const float* yb,
                                   const float* ab, const float* v0,
                                   float* a_out, float* v_out,
@@ -135,20 +362,22 @@ extern "C" int sdca_bucket_launch(const float* xb, const float* yb,
                                   int B, float lam_n, float sig, int obj,
                                   int x_in_smem, int g_in_smem,
                                   int smem_bytes, void* stream) {
+  if (B <= 0 || B > 512 || d_pad <= 0) return cudaErrorInvalidValue;
+  if (W <= 0 || nb <= 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (obj) {
     case OBJ_RIDGE:
-      return launch<OBJ_RIDGE>(xb, yb, ab, v0, a_out, v_out, g_scratch, W,
-                               nb, d_pad, B, lam_n, sig, x_in_smem,
-                               g_in_smem, smem_bytes, s);
+      return launch_mpl<OBJ_RIDGE>(xb, yb, ab, v0, a_out, v_out, g_scratch,
+                                   W, nb, d_pad, B, lam_n, sig, x_in_smem,
+                                   g_in_smem, smem_bytes, s);
     case OBJ_HINGE:
-      return launch<OBJ_HINGE>(xb, yb, ab, v0, a_out, v_out, g_scratch, W,
-                               nb, d_pad, B, lam_n, sig, x_in_smem,
-                               g_in_smem, smem_bytes, s);
+      return launch_mpl<OBJ_HINGE>(xb, yb, ab, v0, a_out, v_out, g_scratch,
+                                   W, nb, d_pad, B, lam_n, sig, x_in_smem,
+                                   g_in_smem, smem_bytes, s);
     case OBJ_LOGISTIC:
-      return launch<OBJ_LOGISTIC>(xb, yb, ab, v0, a_out, v_out, g_scratch,
-                                  W, nb, d_pad, B, lam_n, sig, x_in_smem,
-                                  g_in_smem, smem_bytes, s);
+      return launch_mpl<OBJ_LOGISTIC>(xb, yb, ab, v0, a_out, v_out,
+                                      g_scratch, W, nb, d_pad, B, lam_n, sig,
+                                      x_in_smem, g_in_smem, smem_bytes, s);
     default:
       return cudaErrorInvalidValue;
   }

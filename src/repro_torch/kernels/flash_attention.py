@@ -1,14 +1,21 @@
-"""Flash attention forward: the CUDA kernel and its plain version.
+"""Flash attention forward: the CUDA kernels and their plain version.
 
 `flash_attention_kernel` runs online-softmax attention with causal,
-local (window) or full masks, GQA, and keys past `seq_k` masked, in one
-launch (`csrc/flash_attention.cu`, which replaces the reference's
-Pallas kernel `repro/kernels/flash_attention.py:flash_attention_kernel`).
-It keeps the reference's public (B, S, H, hd) layout: the CUDA kernel
-reads and writes it with strides, so nothing is transposed or padded.
-On a CPU tensor the same function runs `flash_attention_plain`, the
-plain PyTorch version (the masked softmax written out in f32); on a
-CUDA tensor it launches the kernel or raises.
+local (window) or full masks and GQA in one launch, replacing the
+reference's Pallas kernel
+`repro/kernels/flash_attention.py:flash_attention_kernel`.  `route`
+picks one of two hand-written kernels: bf16 at hd = hd_v in {64, 256}
+(the served configs' widths) goes to `csrc/flash_attention_tc.cu`
+(wgmma on the bf16 tensor cores); f32, and bf16 at any other hd,
+hd_v <= 256, to `csrc/flash_attention.cu` (f32 math on the CUDA cores:
+an f32 tensor-core product would be TF32, which the port does not
+use).  Both keep the reference's public (B, S, H, hd) layout, read and
+written with strides, so nothing is transposed or padded; kv is never
+padded either (the reference's `seq_k` has no caller in the port), and
+keys past Sk in the last kv tile are masked by the kernels' own ragged
+edge.  On a CPU tensor the same function runs `flash_attention_plain`,
+the plain PyTorch version (the masked softmax written out in f32); on
+a CUDA tensor it launches a kernel or raises.
 """
 from __future__ import annotations
 
@@ -22,58 +29,120 @@ from .contracts import SMEM_OPTIN_BYTES
 NEG_INF = -1e30
 KINDS = {"causal": 0, "local": 1, "full": 2}
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-#: largest head width (q/k and v) the kernel takes
+#: largest head width (q/k and v) the CUDA-core kernel takes
 MAX_HEAD_DIM = 256
-#: the kernel's q-tile rows and kv-tile keys (csrc/flash_attention.cu)
+#: the CUDA-core kernel's q-tile rows and kv-tile keys
+#: (csrc/flash_attention.cu)
 BQ = BK = 64
+#: head widths (hd = hd_v) the bf16 tensor-core kernel takes
+TC_HEAD_DIMS = (64, 256)
+#: rows of one consumer warpgroup of the tensor-core kernel
+TC_WG_ROWS = 64
+LOG2E = 1.4426950408889634
 
-#: launches of the CUDA kernel (the plain version does not count)
+#: launches of either CUDA kernel (the plain version does not count),
+#: and of each: the CUDA-core kernel and the bf16 tensor-core kernel
 launches = 0
+core_launches = 0
+tc_launches = 0
+
+
+def route(dtype: torch.dtype, hd: int, hd_v: int) -> str:
+    """Which kernel takes these inputs: "tc" (bf16 at hd = hd_v in
+    TC_HEAD_DIMS, tensor cores) or "core" (f32, and bf16 at other
+    widths, CUDA cores); raises on what neither takes."""
+    if dtype not in DTYPE_CODES:
+        raise ValueError(f"flash_attention_kernel: dtype {dtype} not "
+                         f"supported (f32 or bf16)")
+    if dtype == torch.bfloat16 and hd == hd_v and hd in TC_HEAD_DIMS:
+        return "tc"
+    if 0 < hd <= MAX_HEAD_DIM and 0 < hd_v <= MAX_HEAD_DIM:
+        return "core"
+    raise ValueError(f"flash_attention_kernel: head widths hd={hd}, "
+                     f"hd_v={hd_v}; the CUDA-core kernel takes <= "
+                     f"{MAX_HEAD_DIM}")
+
+
+def kv_tile_range(q_start: int, rows: int, Sq: int, Sk: int, *, kind: str,
+                  window: int, bk: int) -> tuple[int, int]:
+    """[begin, end) of the kv tiles of `bk` keys that the q rows
+    [q_start, q_start + rows) visit: the tiles their mask reaches, as
+    both kernels compute it (per block, and per warpgroup in the
+    tensor-core kernel)."""
+    q_last = min(q_start + rows, Sq) - 1
+    end = -(-Sk // bk)
+    if kind != "full":
+        end = min(end, q_last // bk + 1)
+    begin = 0
+    if kind == "local" and q_start - window + 1 > 0:
+        begin = (q_start - window + 1) // bk
+    return begin, max(begin, end)
 
 
 def smem_bytes(hd: int, hd_v: int) -> int:
-    """Dynamic shared memory of one block: the f32 Q tile, the
-    transposed K tile, the V tile and the probability tile, with the
-    kernel's +1 pads."""
+    """Dynamic shared memory of one CUDA-core block, f32 whatever the
+    input type: the Q tile, the transposed K tile, the V tile and the
+    probability tile, with the kernel's +1 pads."""
     return 4 * (BQ * (hd + 1) + hd * (BK + 1) + BK * hd_v + BQ * (BK + 1))
+
+
+def tc_tile(hd: int) -> tuple[int, int, int]:
+    """(q rows per block, keys per kv tile, K/V ring stages) of the
+    tensor-core kernel at head width hd (`Config` in
+    csrc/flash_attention_tc.cu)."""
+    return (256, 64, 4) if hd == 64 else (128, 64, 2)
+
+
+def smem_bytes_tc(hd: int) -> int:
+    """Dynamic shared memory of one tensor-core block: the bf16 Q tile
+    and the ring's stages of K and V tiles, plus 1 KB to align the
+    swizzled tiles and 128 bytes of mbarriers."""
+    bq, bk, stages = tc_tile(hd)
+    return 2 * hd * (bq + 2 * stages * bk) + 1024 + 128
 
 
 def _fn():
     fn = build.load("flash_attention").flash_attention_launch
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, i,
+    fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i,
                    ctypes.c_float, i, i, p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def mask(Sq: int, Sk: int, *, kind: str, window: int, seq_k: int,
+def _fn_tc():
+    fn = build.load("flash_attention_tc").flash_attention_tc_launch
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_float,
+                   i, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def mask(Sq: int, Sk: int, *, kind: str, window: int,
          device=None) -> torch.Tensor:
     """(Sq, Sk) bool: which (query, key) pairs attend."""
     qpos = torch.arange(Sq, device=device)[:, None]
     kpos = torch.arange(Sk, device=device)[None, :]
-    ok = kpos < seq_k
     if kind == "causal":
-        ok = ok & (qpos >= kpos)
-    elif kind == "local":
-        ok = ok & (qpos >= kpos) & (qpos - kpos < window)
-    elif kind != "full":
-        raise ValueError(f"unknown attention kind {kind!r}")
-    return ok
+        return qpos >= kpos
+    if kind == "local":
+        return (qpos >= kpos) & (qpos - kpos < window)
+    if kind == "full":
+        return torch.ones((Sq, Sk), dtype=torch.bool, device=device)
+    raise ValueError(f"unknown attention kind {kind!r}")
 
 
-def flash_attention_plain(q, k, v, *, kind: str = "causal", window: int = 0,
-                          seq_k: int | None = None):
+def flash_attention_plain(q, k, v, *, kind: str = "causal", window: int = 0):
     """The plain PyTorch version of `flash_attention_kernel`, same
     contract: the (Sq, Sk) scores in f32, masked to -1e30, softmax, then
     the weighted sum of v."""
     B, Sq, H, hd = q.shape
     Sk, Hkv, hd_v = k.shape[1], k.shape[2], v.shape[-1]
     G = H // Hkv
-    seq_k = Sk if seq_k is None else seq_k
     qg = q.float().reshape(B, Sq, Hkv, G, hd)
     s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * (hd ** -0.5)
-    ok = mask(Sq, Sk, kind=kind, window=window, seq_k=seq_k, device=q.device)
+    ok = mask(Sq, Sk, kind=kind, window=window, device=q.device)
     s = s.masked_fill(~ok, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
@@ -83,16 +152,14 @@ def flash_attention_plain(q, k, v, *, kind: str = "causal", window: int = 0,
     return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd_v).to(q.dtype)
 
 
-def flash_attention_kernel(q, k, v, *, kind: str = "causal", window: int = 0,
-                           seq_k: int | None = None):
+def flash_attention_kernel(q, k, v, *, kind: str = "causal", window: int = 0):
     """q: (B, Sq, H, hd); k: (B, Sk, Hkv, hd); v: (B, Sk, Hkv, hd_v);
     H a multiple of Hkv (head h reads kv head h // (H // Hkv)); f32 or
-    bf16, one dtype.  seq_k: the true kv length (keys at or past it are
-    masked), default Sk.  Returns (B, Sq, H, hd_v) in q's dtype."""
-    global launches
+    bf16, one dtype (`route` says which kernel takes them).  Returns
+    (B, Sq, H, hd_v) in q's dtype."""
+    global launches, core_launches, tc_launches
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, kind=kind, window=window,
-                                     seq_k=seq_k)
+        return flash_attention_plain(q, k, v, kind=kind, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_kernel: unsupported device "
                          f"{q.device}")
@@ -103,11 +170,8 @@ def flash_attention_kernel(q, k, v, *, kind: str = "causal", window: int = 0,
     Sk, Hkv, hd_v = k.shape[1], k.shape[2], v.shape[-1]
     if kind not in KINDS:
         raise ValueError(f"unknown attention kind {kind!r}")
-    if q.dtype not in DTYPE_CODES:
-        raise ValueError(f"flash_attention_kernel: dtype {q.dtype} not "
-                         f"supported (f32 or bf16)")
     if (k.shape[0] != B or k.shape[-1] != hd or tuple(v.shape[:3])
-            != (B, Sk, Hkv) or Hkv <= 0 or H % Hkv):
+            != (B, Sk, Hkv) or Hkv <= 0 or H % Hkv or Sk <= 0):
         raise ValueError(f"flash_attention_kernel: shapes q "
                          f"{tuple(q.shape)}, k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)} do not agree")
@@ -116,27 +180,30 @@ def flash_attention_kernel(q, k, v, *, kind: str = "causal", window: int = 0,
             raise ValueError(f"flash_attention_kernel: {name} is "
                              f"{t.dtype} on {t.device}, q {q.dtype} on "
                              f"{q.device}")
-    if hd > MAX_HEAD_DIM or hd_v > MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention_kernel: head widths hd={hd}, "
-                         f"hd_v={hd_v}; the kernel takes <= {MAX_HEAD_DIM}")
-    seq_k = Sk if seq_k is None else int(seq_k)
-    if not 0 < seq_k <= Sk:
-        raise ValueError(f"flash_attention_kernel: seq_k={seq_k} outside "
-                         f"(0, {Sk}]")
-    smem = smem_bytes(hd, hd_v)
+    tc = route(q.dtype, hd, hd_v) == "tc"
+    smem = smem_bytes_tc(hd) if tc else smem_bytes(hd, hd_v)
     if smem > SMEM_OPTIN_BYTES:
         raise ValueError(f"flash_attention_kernel: {smem} bytes of shared "
                          f"memory exceed the {SMEM_OPTIN_BYTES}-byte opt-in")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     o = torch.empty((B, Sq, H, hd_v), dtype=q.dtype, device=q.device)
-    err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                B, Sq, Sk, H, Hkv, hd, hd_v, KINDS[kind], int(window), seq_k,
-                hd ** -0.5, DTYPE_CODES[q.dtype], smem,
-                torch.cuda.current_stream(q.device).cuda_stream)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
+    if tc:
+        err = _fn_tc()(*ptrs, B, Sq, Sk, H, Hkv, hd, KINDS[kind],
+                       int(window), hd ** -0.5 * LOG2E, smem, stream)
+    else:
+        err = _fn()(*ptrs, B, Sq, Sk, H, Hkv, hd, hd_v, KINDS[kind],
+                    int(window), hd ** -0.5, DTYPE_CODES[q.dtype], smem,
+                    stream)
     if err != 0:
         raise RuntimeError(
-            f"flash_attention kernel launch failed: CUDA error {err} "
-            f"(B={B}, Sq={Sq}, Sk={Sk}, H={H}, Hkv={Hkv}, hd={hd}, "
-            f"hd_v={hd_v}, {smem} bytes of shared memory)")
+            f"flash_attention {'tensor-core' if tc else 'CUDA-core'} kernel "
+            f"launch failed: CUDA error {err} (B={B}, Sq={Sq}, Sk={Sk}, H={H}, "
+            f"Hkv={Hkv}, hd={hd}, hd_v={hd_v}, {smem} bytes of shared memory)")
     launches += 1
+    if tc:
+        tc_launches += 1
+    else:
+        core_launches += 1
     return o

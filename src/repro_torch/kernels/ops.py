@@ -108,7 +108,7 @@ def sparse_kernel_misfit(n_local: int, nnz: int, d: int, bucket: int,
 def dense_kernel_misfit(d: int, n_local: int, bucket: int) -> Misfit | None:
     """Why the dense kernel cannot run this workload, or None.
 
-    The wrapper zero-pads d and B, and tiles or Gram matrices that do
+    The kernel takes any d and B, and tiles or Gram matrices that do
     not fit shared memory are read from global memory, so the only
     misfits are bucket divisibility and the recursion's B cap.
     """
@@ -116,8 +116,7 @@ def dense_kernel_misfit(d: int, n_local: int, bucket: int) -> Misfit | None:
     if bucket <= 0 or n_local % bucket:
         return Misfit(MisfitCode.BUCKET_INDIVISIBLE,
                       f"bucket={bucket} does not divide n_local={n_local}")
-    B_pad = _round_up(max(bucket, 8), 8)
-    if B_pad > sdca_bucket.MAX_BUCKET:
+    if bucket > sdca_bucket.MAX_BUCKET:
         return Misfit(MisfitCode.BUCKET_CAP,
                       f"bucket={bucket} exceeds the kernel's in-bucket "
                       f"recursion cap of B <= {sdca_bucket.MAX_BUCKET}")
@@ -149,32 +148,20 @@ def _scalar(x, device) -> torch.Tensor:
 
 def dense_tiles(Xl, yl, al, v0, *, bucket: int):
     """The dense kernel's arguments for a worker stack, as the wrapper
-    launches it: (xb (W, nb, d_pad, B_pad), yb, ab (W, nb, B_pad),
-    v0 (W, d_pad)), all f32.
+    launches it: (xb (W, nb, d, B), yb, ab (W, nb, B), v0 (W, d)), all
+    f32, contiguous.
 
     Xl: (*w, d, n_local) columns in visiting order; yl/al (*w, n_local);
-    v0 (*w, d).  d and B are zero-padded to multiples of 8 (the
-    reference's tile geometry); padded coordinates get y=0 and a=0.
+    v0 (*w, d).  Nothing is padded: the kernel takes any d and B (the
+    reference pads both to multiples of 8 for the TPU's tiling; zero
+    rows and columns would only add bytes, ~14 % at HIGGS' d = 28).
     """
     *w, d, n_local = Xl.shape
     W = math.prod(w)
-    B = bucket
-    nb = n_local // B
-    d_pad = _round_up(max(d, 8), 8)
-    B_pad = _round_up(max(B, 8), 8)
-
-    xb = Xl.reshape(W, d, nb, B).permute(0, 2, 1, 3)       # (W, nb, d, B)
-    yb = yl.reshape(W, nb, B)
-    ab = al.reshape(W, nb, B)
-    if d_pad != d or B_pad != B:
-        xb = torch.nn.functional.pad(xb, (0, B_pad - B, 0, d_pad - d))
-    if B_pad != B:
-        # padded coordinates: zero x column => q=0, m=0, and y=0, a=0
-        # give delta == 0 for every objective; their alpha is dropped
-        yb = torch.nn.functional.pad(yb, (0, B_pad - B))
-        ab = torch.nn.functional.pad(ab, (0, B_pad - B))
-    v0p = torch.nn.functional.pad(v0.reshape(W, d).float(), (0, d_pad - d))
-    return xb.float(), yb.float(), ab.float(), v0p
+    nb = n_local // bucket
+    xb = Xl.reshape(W, d, nb, bucket).permute(0, 2, 1, 3)    # (W, nb, d, B)
+    return (xb.float().contiguous(), yl.reshape(W, nb, bucket).float(),
+            al.reshape(W, nb, bucket).float(), v0.reshape(W, d).float())
 
 
 def _csr_tiles(idx, val, yl, al, *, bucket: int, source: str):
@@ -286,8 +273,8 @@ def sdca_bucket_subepoch(obj: Objective, Xl, yl, al, v0, lam_n, sig, *,
     a_new, v_fin = sdca_bucket.sdca_bucket_kernel(
         obj, xb, yb, ab, v0p, float(lam_n), float(sig), source)
 
-    a_out = a_new[..., :bucket].reshape(*w, n_local)
-    dv = (v_fin[:, :d] - v0p[:, :d]) / _scalar(sig, v0.device)
+    a_out = a_new.reshape(*w, n_local)
+    dv = (v_fin - v0p) / _scalar(sig, v0.device)
     return a_out.to(al.dtype), dv.reshape(*w, d).to(v0.dtype)
 
 
@@ -397,7 +384,7 @@ def flash_attention(q, k, v, *, kind: str = "causal", window: int = 0):
 
     q: (B, Sq, H, hd); k: (B, Sk, Hkv, hd); v: (B, Sk, Hkv, hd_v); the
     GQA group is H // Hkv and the true kv length is Sk.  Unlike the
-    reference's wrapper nothing is padded: the CUDA kernel masks its own
-    ragged edge and takes any hd, hd_v <= 256."""
-    return _fa.flash_attention_kernel(q, k, v, kind=kind, window=window,
-                                      seq_k=k.shape[1])
+    reference's wrapper nothing is padded: the CUDA kernels mask their
+    own ragged edge (f32: any hd, hd_v <= 256; bf16: hd = hd_v in
+    {64, 256})."""
+    return _fa.flash_attention_kernel(q, k, v, kind=kind, window=window)

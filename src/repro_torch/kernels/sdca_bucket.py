@@ -1,15 +1,14 @@
 """Dense bucketed SDCA sub-epoch: the CUDA kernel and its plain version.
 
-`sdca_bucket_kernel` runs every worker's pass over its (d_pad x B)
-bucket tiles: one thread block per worker, all workers in one launch
+`sdca_bucket_kernel` runs every worker's pass over its (d x B) bucket
+tiles: one thread block per worker, all workers in one launch
 (`csrc/sdca_bucket.cu`, which replaces the reference's Pallas kernel
 `repro/kernels/sdca_bucket.py:sdca_bucket_kernel`).  On a CPU tensor
 the same function runs `sdca_bucket_plain`, the plain PyTorch version;
 on a CUDA tensor it launches the kernel or raises.
 
-d_pad and B need no alignment on the card; the wrapper in `ops`
-zero-pads both to multiples of 8 only to keep the reference's tile
-geometry.  B is capped at `MAX_BUCKET`.
+d and B need no alignment (`ops.dense_tiles` pads neither).  B is
+capped at `MAX_BUCKET`.
 """
 from __future__ import annotations
 
@@ -27,20 +26,30 @@ MAX_BUCKET = 512
 
 OBJ_CODES = {"ridge": 0, "hinge": 1, "logistic": 2}
 
+#: shared-memory stages the producer warps fill ahead of the chain
+#: (csrc/sdca_bucket.cu)
+STAGES = 2
+#: levels of the bisection tree the chain warp walks per round
+#: (`kTreeLevels` in csrc/sdca_bucket.cu)
+TREE_LEVELS = 5
+
 #: launches of the CUDA kernel (the plain version does not count)
 launches = 0
 
 
-def smem_layout(B: int, d_pad: int) -> tuple[bool, bool, int]:
+def smem_layout(B: int, d: int) -> tuple[bool, bool, int]:
     """-> (tile in shared memory, G in shared memory, dynamic bytes).
 
-    The block always keeps its margins and deltas in shared memory; the
-    (d_pad, B) tile joins them when it fits the opt-in, and the (B, B)
-    Gram matrix when it fits beside them.  What does not fit is read
-    from global memory (G from a (W, B, B) scratch)."""
-    base = (2 * B + 4) * 4
-    tile = d_pad * B * 4
-    gram = B * B * 4
+    The block always keeps the bucket's deltas and, for each of its
+    `STAGES` stages, the staged a, y and q in shared memory; the worker's
+    v and a (d, B) tile per stage join them when they fit the opt-in
+    (16 bytes of slack align the tiles for 16-byte copies), and a (B, B)
+    Gram matrix per stage when it fits beside them.  What does not fit is
+    read from global memory (v from v_out, G from a (W, STAGES, B, B)
+    scratch)."""
+    base = (B + 3 * B * STAGES) * 4
+    tile = (d + STAGES * d * B) * 4 + 16
+    gram = STAGES * B * B * 4
     x_in = base + tile <= SMEM_OPTIN_BYTES
     used = base + (tile if x_in else 0)
     g_in = used + gram <= SMEM_OPTIN_BYTES
@@ -67,10 +76,10 @@ def sdca_bucket_kernel(obj: Objective, xb, yb, ab, v0, lam_n: float,
                        sig: float, source: str = "ad-hoc arrays"):
     """Run every worker's dense sub-epoch.
 
-    xb: (W, nb, d_pad, B) f32 bucket tiles in visiting order
-    yb, ab: (W, nb, B) f32;  v0: (W, d_pad) f32 per-worker replicas
+    xb: (W, nb, d, B) f32 bucket tiles in visiting order
+    yb, ab: (W, nb, B) f32;  v0: (W, d) f32 per-worker replicas
     lam_n, sig: lam*n and sigma'
-    Returns (a_new (W, nb, B), v_final (W, d_pad)); v_final includes the
+    Returns (a_new (W, nb, B), v_final (W, d)); v_final includes the
     sigma'-scaled local evolution (callers unscale the global delta).
     """
     global launches
@@ -78,31 +87,31 @@ def sdca_bucket_kernel(obj: Objective, xb, yb, ab, v0, lam_n: float,
         return sdca_bucket_plain(obj, xb, yb, ab, v0, lam_n, sig)
     if xb.device.type != "cuda":
         raise ValueError(f"sdca_bucket_kernel: unsupported device {xb.device}")
-    W, nb, d_pad, B = xb.shape
+    W, nb, d, B = xb.shape
     if B > MAX_BUCKET:
         raise ValueError(
             f"dense bucket tiles from {source} have B={B}; the kernel's "
             f"in-bucket Gram recursion supports B <= {MAX_BUCKET}.  Use a "
             f"smaller bucket, or local_solver='torch'.")
     for name, t, shape in (("yb", yb, (W, nb, B)), ("ab", ab, (W, nb, B)),
-                           ("v0", v0, (W, d_pad))):
+                           ("v0", v0, (W, d))):
         if tuple(t.shape) != shape or t.device != xb.device:
             raise ValueError(f"{name}: expected {shape} on {xb.device}, "
                              f"got {tuple(t.shape)} on {t.device}")
     xb, yb, ab, v0 = (t.float().contiguous() for t in (xb, yb, ab, v0))
-    x_in, g_in, smem = smem_layout(B, d_pad)
+    x_in, g_in, smem = smem_layout(B, d)
     a_out = torch.empty_like(ab)
     v_out = torch.empty_like(v0)
-    g_scratch = (torch.empty((W, B, B), dtype=torch.float32,
+    g_scratch = (torch.empty((W, STAGES, B, B), dtype=torch.float32,
                              device=xb.device) if not g_in else None)
     err = _fn()(xb.data_ptr(), yb.data_ptr(), ab.data_ptr(), v0.data_ptr(),
                 a_out.data_ptr(), v_out.data_ptr(),
                 g_scratch.data_ptr() if g_scratch is not None else None,
-                W, nb, d_pad, B, lam_n, sig, OBJ_CODES[obj.name],
+                W, nb, d, B, lam_n, sig, OBJ_CODES[obj.name],
                 int(x_in), int(g_in), smem,
                 torch.cuda.current_stream(xb.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"sdca_bucket kernel launch failed: CUDA error "
-                           f"{err} (W={W}, nb={nb}, d_pad={d_pad}, B={B})")
+                           f"{err} (W={W}, nb={nb}, d={d}, B={B})")
     launches += 1
     return a_out, v_out

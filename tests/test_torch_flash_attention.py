@@ -107,15 +107,15 @@ def test_bf16_matches_reference(kind):
 
 @pytest.mark.parametrize("kind", ["causal", "local", "full"])
 def test_padded_kv_masked_by_seq_k(kind):
-    """Keys at or past the true length `seq_k` are masked: the plain
-    version on zero-padded kv equals the reference kernel called the
-    same way, and equals attention over the unpadded kv."""
+    """The port never pads kv: attention over the true-length kv equals
+    the reference kernel called on zero-padded kv with the true length
+    as its `seq_k` (keys at or past it masked)."""
     B, S, H, Hkv, hd = 1, 40, 2, 1, 32
     q, k, v = _inputs((B, S, S, H, Hkv, hd, hd), seed=11)
     pad = ((0, 0), (0, 8), (0, 0), (0, 0))
     kp, vp = np.pad(k, pad), np.pad(v, pad)
-    out = fa.flash_attention_plain(_t(q), _t(kp), _t(vp), kind=kind,
-                                   window=WINDOW, seq_k=S)
+    out = fa.flash_attention_plain(_t(q), _t(k), _t(v), kind=kind,
+                                   window=WINDOW)
     tr = lambda a: jnp.asarray(a).transpose(0, 2, 1, 3).reshape(
         -1, a.shape[1], a.shape[3])
     ref = ref_fa.flash_attention_kernel(
@@ -123,10 +123,9 @@ def test_padded_kv_masked_by_seq_k(kind):
         group=H // Hkv, seq_k=S, interpret=True)
     ref = np.asarray(ref).reshape(B, H, S, hd).transpose(0, 2, 1, 3)
     np.testing.assert_allclose(out.numpy(), ref, rtol=2e-4, atol=2e-4)
-    unpadded = fa.flash_attention_plain(_t(q), _t(k), _t(v), kind=kind,
-                                        window=WINDOW)
-    np.testing.assert_allclose(out.numpy(), unpadded.numpy(), rtol=1e-6,
-                               atol=1e-6)
+    via_ops = ops.flash_attention(_t(q), _t(k), _t(v), kind=kind,
+                                  window=WINDOW)
+    assert torch.equal(via_ops, out)
 
 
 def test_attention_dispatch_on_cpu_is_blocked():
@@ -152,17 +151,18 @@ def test_kernel_budget_fits_both_configs():
 
 
 def test_mask_kinds():
-    ok = fa.mask(6, 6, kind="local", window=2, seq_k=5)
-    want = np.array([[1, 0, 0, 0, 0, 0], [1, 1, 0, 0, 0, 0],
-                     [0, 1, 1, 0, 0, 0], [0, 0, 1, 1, 0, 0],
-                     [0, 0, 0, 1, 1, 0], [0, 0, 0, 0, 1, 0]], bool)
+    ok = fa.mask(6, 5, kind="local", window=2)
+    want = np.array([[1, 0, 0, 0, 0], [1, 1, 0, 0, 0],
+                     [0, 1, 1, 0, 0], [0, 0, 1, 1, 0],
+                     [0, 0, 0, 1, 1], [0, 0, 0, 0, 1]], bool)
     np.testing.assert_array_equal(ok.numpy(), want)
-    assert fa.mask(3, 4, kind="full", window=0, seq_k=4).all()
+    full = fa.mask(3, 4, kind="full", window=0)
+    assert full.shape == (3, 4) and full.all()
     np.testing.assert_array_equal(
-        fa.mask(3, 3, kind="causal", window=0, seq_k=3).numpy(),
+        fa.mask(3, 3, kind="causal", window=0).numpy(),
         np.tril(np.ones((3, 3), bool)))
     with pytest.raises(ValueError):
-        fa.mask(2, 2, kind="sliding", window=1, seq_k=2)
+        fa.mask(2, 2, kind="sliding", window=1)
 
 
 def test_wrapper_rejects_other_devices():

@@ -198,8 +198,12 @@ def test_misfits():
 
 
 def test_dense_smem_layout():
-    assert sdca_bucket.smem_layout(16, 32) == (True, True,
-                                               (2 * 16 + 4 + 32 * 16 + 256) * 4)
+    # deltas + 2 stages of (a, y, q); v + 2 stage tiles (+16 B to align
+    # them); 2 stage Gram matrices
+    assert sdca_bucket.STAGES == 2
+    assert sdca_bucket.smem_layout(16, 32) == (
+        True, True, (16 + 2 * 3 * 16) * 4 + (32 + 2 * 32 * 16) * 4 + 16
+        + 2 * 16 * 16 * 4)
     x_in, g_in, _ = sdca_bucket.smem_layout(512, 32)        # G is 1 MB
     assert x_in and not g_in
     x_in, g_in, _ = sdca_bucket.smem_layout(16, 100_000)    # tile 6.4 MB

@@ -12,7 +12,8 @@ epoch, then measures on the card:
   * `kernel_ms`   the kernel alone on that epoch's tiles, once per
                   objective (CUDA events, 1 launch each after warm-up):
                   ridge and hinge skip the 40-step logistic bisection,
-                  so logistic - ridge is the bisection's share;
+                  so `bisection_ms` = logistic - ridge is the
+                  bisection's share;
   * `profile`     a torch.profiler trace of one epoch: device time by
                   kernel name, and the device's busy share of an
                   unprofiled epoch (device time / `epoch_s`).
@@ -28,12 +29,13 @@ profiled one.
 The `lm` path is `chip_smoke.py`'s recurrentgemma-2b serving run
 (random weights, batch 2 x 4,096 prompt tokens).  After a warm-up
 prefill it times one prefill (host clock around a synchronize), then a
-profiled one, whose device time it splits into B5 flash attention, B6
-RG-LRU, the matrix products (cuBLAS kernels) and the rest (elementwise
-and reductions), with the host's share (prefill wall time less device
-busy time); the logits product (x @ lm_head, (8,192 x 2,560) by
-(2,560 x 256,000)) alone by CUDA events; and a profiled run of 4 decode
-steps.  Not in the default `--paths`.
+profiled one, whose device time it splits into B5 flash attention
+(the bf16 tensor-core kernel on this path; the CUDA-core kernel apart,
+should it run), B6 RG-LRU, the matrix products (cuBLAS kernels) and the
+rest (elementwise and reductions), with the host's share (prefill wall
+time less device busy time); the logits product (x @ lm_head, (8,192 x
+2,560) by (2,560 x 256,000)) alone by CUDA events; and a profiled run
+of 4 decode steps.  Not in the default `--paths`.
 
 Prints one JSON object per path and, with --out, writes them all to a
 file.  Needs one CUDA GPU and nvcc; imports nothing of JAX.
@@ -115,6 +117,7 @@ def breakdown(label, make_session, kernel) -> dict:
     rec = {"path": label, "shape": shape, "objective": s.obj.name,
            "epoch_s": epoch_s, "schedule_s": schedule_s,
            "kernel_ms": kernel_ms,
+           "bisection_ms": kernel_ms["logistic"] - kernel_ms["ridge"],
            "per_coordinate_us": {k: v * 1e3 / (shape["n"] / shape["W"])
                                  for k, v in kernel_ms.items()},
            "profile": profile_epoch(s.epoch, epoch_s)}
@@ -176,8 +179,10 @@ GEMM_NAMES = ("gemm", "Gemm", "GEMM", "xmma", "cutlass", "nvjet", "sm90_")
 
 
 def lm_category(name: str) -> str:
+    if "flash_attention_tc_kernel" in name:
+        return "flash_attention_tc (B5, bf16 tensor cores)"
     if "flash_attention_kernel" in name:
-        return "flash_attention (B5)"
+        return "flash_attention (B5, CUDA cores)"
     if "rglru_kernel" in name:
         return "rglru (B6)"
     if any(p in name for p in GEMM_NAMES):
