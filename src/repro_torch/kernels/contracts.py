@@ -34,8 +34,9 @@ KERNEL_CONTRACTS: dict[str, dict] = {
         "smem_estimate": "repro_torch.kernels.sdca_bucket:smem_layout",
         "replaces": "src/repro/kernels/sdca_bucket.py:102",
     },
-    # sparse replicated kernel: v replicas in global memory, the
-    # bucket's working set in shared memory.  -fmad=false keeps every
+    # sparse replicated kernel: v replicas in global memory, two stages
+    # of a bucket's links and working set in shared memory (in global
+    # memory for a bucket too large for it).  -fmad=false keeps every
     # multiply and add separate: the kernel is bitwise equal to the
     # plain scan, which has no fused operations.
     "sdca_sparse_bucket.sdca_sparse_bucket_kernel": {
@@ -50,9 +51,11 @@ KERNEL_CONTRACTS: dict[str, dict] = {
     # feature-sharded pair, one launch each per bucket over every
     # (worker, lane) block: the partial working-set gather, then the
     # recursion and owned scatter on the exchanged working set.  The
-    # tiles, the working set and the scratch live in global memory, so
-    # neither places buffers in dynamic shared memory; -fmad=false as
-    # for the replicated kernel (the pair is bitwise equal to the scan).
+    # tiles, the working set and the scratch live in global memory; the
+    # recursion places one row's operands in dynamic shared memory (in
+    # a global scratch row for a row too wide for it).
+    # -fmad=false as for the replicated kernel (the pair is bitwise
+    # equal to the scan).
     "sdca_sparse_bucket.sdca_sparse_gather_bucket": {
         "source": "csrc/sdca_sparse_gather_bucket.cu",
         "entry": "sdca_sparse_gather_bucket_launch",
@@ -66,7 +69,8 @@ KERNEL_CONTRACTS: dict[str, dict] = {
         "entry": "sdca_sparse_sharded_bucket_launch",
         "nvcc_extra": ("-fmad=false",),
         "misfit": "repro_torch.kernels.ops:sparse_kernel_misfit",
-        "smem_estimate": None,
+        "smem_estimate":
+            "repro_torch.kernels.sdca_sparse_bucket:sharded_smem_bytes",
         "replaces": "src/repro/kernels/sdca_sparse_bucket.py:453",
     },
     # LM serving, f32 inputs: online-softmax attention, one block per

@@ -36,7 +36,6 @@ class MisfitCode:
     """Stable enum-style codes for kernel misfit reasons."""
     BUCKET_INDIVISIBLE = "BUCKET_INDIVISIBLE"   # B does not divide n_local
     BUCKET_CAP = "BUCKET_CAP"                   # dense recursion cap B<=512
-    SMEM_TOTAL = "SMEM_TOTAL"                   # sparse working set > opt-in
 
 
 class Misfit(str):
@@ -66,40 +65,33 @@ def sparse_solver_plan(n_local: int, nnz: int, d: int, bucket: int, *,
     """Data-parallel vs feature-parallel route on static shapes.
 
     -> (route, reason): "kernel" (the replicated kernel: v replicas in
-    global memory, the bucket's working set in shared memory),
-    "kernel-sharded" (each of `model_lanes` lanes owns a d/M slice of v;
-    tiles, working set and scratch in global memory) or "torch" with
-    the misfit.  Prefers the replicated kernel (no per-bucket exchange)
-    when its working set fits.  The sharded route keeps everything in
-    global memory, so only bucket divisibility misfits it; d never
-    misfits (the card's 50 MB L2 holds the hot entries of v).
+    global memory, the bucket's links and working set in shared memory,
+    or in global memory where they do not fit), "kernel-sharded" (each
+    of `model_lanes` lanes owns a d/M slice of v; tiles, working set and
+    scratch in global memory, one row's operands in shared memory where
+    they fit) or "torch" with the misfit.  Prefers the replicated kernel
+    (no per-bucket exchange) when its stages fit shared memory, and on
+    a single lane.  Only bucket divisibility misfits; d never misfits
+    (the card's 50 MB L2 holds the hot entries of v).
     """
     del d
     if bucket <= 0 or n_local % bucket:
         return "torch", Misfit(
             MisfitCode.BUCKET_INDIVISIBLE,
             f"bucket={bucket} does not divide n_local={n_local}")
-    if sdca_sparse_bucket.fits_smem(bucket, nnz):
-        return "kernel", None
-    if model_lanes > 1:
+    if model_lanes > 1 and not sdca_sparse_bucket.fits_smem(bucket, nnz):
         return "kernel-sharded", None
-    return "torch", Misfit(
-        MisfitCode.SMEM_TOTAL,
-        f"{sdca_sparse_bucket.smem_bytes(bucket, nnz)}-byte shared-"
-        f"memory working set for (B={bucket}, nnz={nnz}) exceeds the "
-        f"{sdca_sparse_bucket.SMEM_OPTIN_BYTES}-byte per-block opt-in "
-        f"(a model axis of 2 or more lanes would route it to the "
-        f"feature-sharded kernels)")
+    return "kernel", None
 
 
 def sparse_kernel_misfit(n_local: int, nnz: int, d: int, bucket: int,
                          model_lanes: int = 1) -> Misfit | None:
     """Why no sparse kernel can run this workload, or None.
 
-    The boolean view of `sparse_solver_plan`: None when the replicated
-    or (given `model_lanes` > 1) the sharded kernels fit — every shape
-    the replicated kernel takes, the sharded pair takes too, so callers
-    on a feature-sharded layout use it as the sharded verdict."""
+    The boolean view of `sparse_solver_plan`: None when a kernel takes
+    the workload (the replicated one, or given `model_lanes` > 1 the
+    sharded pair: every shape the one takes, the other takes too), so
+    callers on a feature-sharded layout use it as the sharded verdict."""
     route, reason = sparse_solver_plan(n_local, nnz, d, bucket,
                                        model_lanes=model_lanes)
     return reason if route == "torch" else None
@@ -200,15 +192,18 @@ def sparse_tiles(idx, val, yl, al, v0, *, bucket: int,
 
 def _bucket_links(idxb):
     """The sharded kernel's links of (W, nb, B, nnz) feature ids:
-    (W, nb, 4, B*nnz) int32 planes pos, slot, run_len, group_len.
+    (W, nb, 5, B*nnz) int32 planes pos, slot, run_len, group_len, rpos.
 
     Each bucket's entries (visiting order t = i*nnz + k) are sorted by
     (feature id, t), stably.  pos[t] is t's place in that order;
     slot[t] the place of the first entry of t's feature; run_len[t],
     for the first entry of a feature in a row, the row's count of that
     feature's entries (0 elsewhere); group_len[t], for the first entry
-    of a feature in the bucket, the bucket's count (0 elsewhere).
-    `csrc/sdca_sparse_sharded_bucket.cu` says how the kernel walks them.
+    of a feature in the bucket, the bucket's count (0 elsewhere);
+    rpos[t] t's place when its row alone is sorted by (feature id, k),
+    so a row's run of one feature is contiguous there from its first
+    entry.  `csrc/sdca_sparse_sharded_bucket.cu` and
+    `csrc/sparse_recursion.cuh` say how the kernel walks them.
     """
     W, nb, B, nnz = idxb.shape
     E = B * nnz
@@ -229,16 +224,22 @@ def _bucket_links(idxb):
     first_id, id_len = starts_and_lengths(new_id)
     _, run_len = starts_and_lengths(new_run)
     pos = torch.empty_like(order).scatter_(1, order, place)
+    row_order = torch.sort(idxb.reshape(W * nb * B, nnz), dim=-1,
+                           stable=True).indices
+    rpos = torch.empty_like(row_order).scatter_(
+        1, row_order, torch.arange(nnz, device=ids.device).expand_as(
+            row_order))
     planes = (pos, torch.gather(first_id, 1, pos),
-              torch.gather(run_len, 1, pos), torch.gather(id_len, 1, pos))
-    return torch.stack(planes, 1).to(torch.int32).reshape(W, nb, 4, E)
+              torch.gather(run_len, 1, pos), torch.gather(id_len, 1, pos),
+              rpos.reshape(W * nb, E))
+    return torch.stack(planes, 1).to(torch.int32).reshape(W, nb, 5, E)
 
 
 def sharded_tiles(idx, val, yl, al, v0, *, bucket: int, model_lanes: int,
                   source: str = "ad-hoc arrays"):
     """The feature-sharded kernels' arguments for a worker stack, as
     `sdca_sparse_sharded_subepoch` launches them: (idxb, valb (Wk, nb,
-    B, nnz), yb, ab, qb (Wk, nb, B), links (Wk, nb, 4, B*nnz), v_loc
+    B, nnz), yb, ab, qb (Wk, nb, B), links (Wk, nb, 5, B*nnz), v_loc
     (Wk, M, d_loc)).
 
     idx/val: (*w, n_local, nnz) padded-CSR rows in visiting order; v0:

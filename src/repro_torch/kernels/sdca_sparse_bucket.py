@@ -6,6 +6,9 @@ replica of v held in global memory: one thread block per worker, all
 workers in one launch
 (`csrc/sdca_sparse_bucket.cu`, which replaces the reference's Pallas
 kernel `repro/kernels/sdca_sparse_bucket.py:sdca_sparse_bucket_kernel`).
+One chain warp walks each row over the bucket's links
+(`csrc/sparse_recursion.cuh`) while producer warps build the next
+bucket's links and working set in shared memory.
 On a CPU tensor it runs `sdca_sparse_bucket_plain`; on a CUDA tensor it
 launches the kernel or raises.
 
@@ -43,20 +46,76 @@ from . import build
 from .contracts import SMEM_OPTIN_BYTES
 from .sdca_bucket import OBJ_CODES
 
+#: shared-memory stages the replicated kernel's producer warps fill
+#: ahead of its chain warp (`kStages` in csrc/sdca_sparse_bucket.cu)
+STAGES = 2
+#: link planes of the sharded kernel (`ops.sharded_tiles`)
+LINK_PLANES = 5
+
 #: launches of each CUDA kernel (the plain versions do not count)
 launches = 0
 gather_launches = 0
 sharded_launches = 0
 
 
+def _round4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def table_cells(E: int) -> int:
+    """Cells of the replicated kernel's hash table of a bucket's ids:
+    the power of two at or above 2E (`table_bits` in the source)."""
+    return 1 << (2 * E - 1).bit_length()
+
+
+def region_words(B: int, nnz: int) -> int:
+    """4-byte words of the replicated kernel's stage region (`carve` in
+    csrc/sdca_sparse_bucket.cu): the producers' copy of the bucket's ids
+    (E = B*nnz), and two stages of val, slot, run_len, rpos, rval (val
+    in run order), the distinct ids' cells and the patch pairs (8E), the
+    hash table and the cells' values (2H, `table_cells`), a, y,
+    sigma' q / lam_n (3B) and 4 counts."""
+    E = B * nnz
+    return E + STAGES * (8 * E + 2 * table_cells(E) + 3 * B + 4)
+
+
 def smem_bytes(B: int, nnz: int) -> int:
-    """Dynamic shared memory of one block: the idx/val tile, the working
-    set W and the update rows U (B*nnz each), the deltas and a slot."""
-    return (4 * B * nnz + B + 4) * 4
+    """Dynamic shared memory of one replicated-kernel block with its
+    stages in it: the chain's row of products (nnz, rounded up to 4)
+    and the stage region (`region_words`)."""
+    return 4 * (_round4(nnz) + region_words(B, nnz))
 
 
 def fits_smem(B: int, nnz: int) -> bool:
+    """Whether the stage region fits shared memory; a larger bucket
+    keeps it in global memory, one region per block, with the same
+    code."""
     return smem_bytes(B, nnz) <= SMEM_OPTIN_BYTES
+
+
+#: products per published chunk of the sharded kernel's row
+#: (`kChunk` in csrc/sdca_sparse_sharded_bucket.cu)
+SHARDED_CHUNK = 256
+
+
+def sharded_row_words(nnz: int) -> int:
+    """4-byte words of one row's operands in the sharded kernel (`carve`
+    in csrc/sdca_sparse_sharded_bucket.cu): products, update values,
+    val, slot, run_len and rpos (nnz each, rounded up to 4)."""
+    return 6 * _round4(nnz)
+
+
+def sharded_smem_bytes(nnz: int) -> int:
+    """Dynamic shared memory of one sharded-kernel block with the row's
+    operands in it (`sharded_row_words`), a ready flag per chunk of
+    products and the row's coefficient."""
+    return 4 * (sharded_row_words(nnz) + -(-nnz // SHARDED_CHUNK) + 1)
+
+
+def sharded_fits_smem(nnz: int) -> bool:
+    """Whether a row's operands fit shared memory; a wider row keeps
+    them in a global scratch row per block, with the same code."""
+    return sharded_smem_bytes(nnz) <= SMEM_OPTIN_BYTES
 
 
 def _fn(stem: str, argtypes: str):
@@ -112,12 +171,6 @@ def sdca_sparse_bucket_kernel(obj: Objective, idx, val, yb, ab, qb, v0,
             f"sdca_sparse_bucket_kernel: unsupported device {idx.device}")
     W, nb, B, nnz = idx.shape
     d_pad = v0.shape[-1]
-    if not fits_smem(B, nnz):
-        raise ValueError(
-            f"sparse bucket tiles from {source} with (B={B}, nnz={nnz}) "
-            f"need {smem_bytes(B, nnz)} bytes of shared memory per block, "
-            f"over the {SMEM_OPTIN_BYTES}-byte opt-in.  Use a smaller "
-            f"bucket, or local_solver='torch'.")
     for name, t, shape in (("val", val, (W, nb, B, nnz)),
                            ("yb", yb, (W, nb, B)), ("ab", ab, (W, nb, B)),
                            ("qb", qb, (W, nb, B)), ("v0", v0, (W, d_pad))):
@@ -129,16 +182,22 @@ def sdca_sparse_bucket_kernel(obj: Objective, idx, val, yb, ab, qb, v0,
                            for t in (val, yb, ab, qb, v0))
     a_out = torch.empty_like(ab)
     v_out = torch.empty_like(v0)
-    fn = _fn("sdca_sparse_bucket", "pppppppp" "iiiii" "ff" "ii" "p")
+    stages, smem = None, smem_bytes(B, nnz)
+    if not fits_smem(B, nnz):
+        stages = torch.empty((W, region_words(B, nnz)), dtype=torch.float32,
+                             device=idx.device)
+        smem = 4 * _round4(nnz)
+    fn = _fn("sdca_sparse_bucket", "ppppppppp" "iiiii" "ff" "ii" "p")
     err = fn(idx.data_ptr(), val.data_ptr(), yb.data_ptr(), ab.data_ptr(),
              qb.data_ptr(), v0.data_ptr(), a_out.data_ptr(),
-             v_out.data_ptr(), W, nb, B, nnz, d_pad, lam_n, sig,
-             OBJ_CODES[obj.name], smem_bytes(B, nnz),
+             v_out.data_ptr(), None if stages is None else stages.data_ptr(),
+             W, nb, B, nnz, d_pad, lam_n, sig, OBJ_CODES[obj.name], smem,
              torch.cuda.current_stream(idx.device).cuda_stream)
     if err != 0:
         raise RuntimeError(
-            f"sdca_sparse_bucket kernel launch failed: CUDA error {err} "
-            f"(W={W}, nb={nb}, B={B}, nnz={nnz}, d_pad={d_pad})")
+            f"sdca_sparse_bucket kernel launch failed on tiles from "
+            f"{source}: CUDA error {err} (W={W}, nb={nb}, B={B}, "
+            f"nnz={nnz}, d_pad={d_pad})")
     launches += 1
     return a_out, v_out
 
@@ -250,10 +309,13 @@ def sdca_sparse_sharded_bucket(obj: Objective, idxb, valb, yb, ab, qb,
     """Bucket `b`'s recursion on every lane, and the owned scatter.
 
     idxb/valb: (Wk, nb, B, nnz) int32/f32; yb/ab/qb: (Wk, nb, B) f32;
-    links: (Wk, nb, 4, B*nnz) int32 from `ops.sharded_tiles`; W: (Wk, M,
-    B, nnz) f32 the EXCHANGED working set (the same bits on every lane
-    of a worker); v_loc: (Wk, M, d_loc) f32, UPDATED IN PLACE (each lane
-    adds its owned entries' updates into its slice, in visiting order).
+    links: (Wk, nb, 5, B*nnz) int32 from `ops.sharded_tiles`; W: (Wk, M,
+    B, nnz) f32 the EXCHANGED working set, `ops.exchange_working_set` of
+    this v_loc's partial working sets (the same bits on every lane of a
+    worker, and the lane's own slice bits where it owns the feature: the
+    kernel's scatter relies on it); v_loc: (Wk, M, d_loc) f32, UPDATED
+    IN PLACE (each lane adds its owned entries' updates into its slice,
+    in visiting order).
     Returns a_new (Wk, M, B): every lane's copy of the bucket's duals.
     """
     global sharded_launches
@@ -271,7 +333,7 @@ def sdca_sparse_sharded_bucket(obj: Objective, idxb, valb, yb, ab, qb,
             ("valb", valb, (Wk, nb, B, nnz), f32),
             ("yb", yb, (Wk, nb, B), f32), ("ab", ab, (Wk, nb, B), f32),
             ("qb", qb, (Wk, nb, B), f32),
-            ("links", links, (Wk, nb, 4, E), torch.int32),
+            ("links", links, (Wk, nb, LINK_PLANES, E), torch.int32),
             ("W", W, (Wk, M, B, nnz), f32),
             ("v_loc", v_loc, (Wk, M, d_loc), f32)):
         _check(name, t, shape, dt, dev)
@@ -279,14 +341,20 @@ def sdca_sparse_sharded_bucket(obj: Objective, idxb, valb, yb, ab, qb,
         raise ValueError(f"sparse tiles from {source}: bucket {b} of {nb}")
     a_out = torch.empty((Wk, M, B), dtype=f32, device=dev)
     S = torch.empty((Wk * M, E), dtype=f32, device=dev)     # scratch
-    U = torch.empty((Wk * M, E), dtype=f32, device=dev)
+    rows, smem = None, sharded_smem_bytes(nnz)
+    if not sharded_fits_smem(nnz):
+        rows = torch.empty((Wk * M, sharded_row_words(nnz)), dtype=f32,
+                           device=dev)
+        smem -= 4 * sharded_row_words(nnz)
     fn = _fn("sdca_sparse_sharded_bucket", "ppppp" "pppppp" "iiiiiii" "ff"
-             "i" "p")
+             "ii" "p")
     err = fn(idxb.data_ptr(), valb.data_ptr(), yb.data_ptr(), ab.data_ptr(),
              qb.data_ptr(), links.data_ptr(), W.data_ptr(),
-             v_loc.data_ptr(), a_out.data_ptr(), S.data_ptr(), U.data_ptr(),
+             v_loc.data_ptr(), a_out.data_ptr(), S.data_ptr(),
+             None if rows is None else rows.data_ptr(),
              Wk * M, M, nb, b, B, nnz, d_loc, lam_n, sig,
-             OBJ_CODES[obj.name], torch.cuda.current_stream(dev).cuda_stream)
+             OBJ_CODES[obj.name], smem,
+             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"sdca_sparse_sharded_bucket kernel launch failed: CUDA error "

@@ -1,6 +1,8 @@
 """The dense kernel's (B1) logistic delta as a tree walk.
 
-`csrc/sdca_bucket.cu` evaluates the serial 40-step bisection of
+`csrc/bisect_tree.cuh` (the chain warps of `csrc/sdca_bucket.cu`,
+`csrc/sdca_sparse_bucket.cu` and `csrc/sdca_sparse_sharded_bucket.cu`)
+evaluates the serial 40-step bisection of
 `repro_torch.core.objectives` (`_log_delta`) in rounds of L = 5 levels:
 in each round the 31 nodes of the next 5 levels of the bisection tree
 are evaluated at once (one lane of the chain warp each, heap order), and
@@ -27,8 +29,9 @@ from repro_torch.core import objectives as tobj  # noqa: E402
 from repro_torch.kernels import sdca_bucket  # noqa: E402
 from repro_torch.kernels.contracts import SMEM_OPTIN_BYTES  # noqa: E402
 
-SRC = (pathlib.Path(sdca_bucket.__file__).parent / "csrc"
-       / "sdca_bucket.cu").read_text()
+CSRC = pathlib.Path(sdca_bucket.__file__).parent / "csrc"
+SRC = (CSRC / "bisect_tree.cuh").read_text()
+DENSE_SRC = (CSRC / "sdca_bucket.cu").read_text()
 LEVELS = sdca_bucket.TREE_LEVELS
 
 
@@ -40,7 +43,7 @@ def _g_prime_negative(mid, m, b0, y, q):
 
 
 def tree_walk_delta(m, a, y, q, levels_per_round):
-    """Emulation of `logistic_delta_tree` in csrc/sdca_bucket.cu."""
+    """Emulation of `logistic_delta_tree` in csrc/bisect_tree.cuh."""
     b0 = a * y
     lo = torch.full_like(b0, 1e-6)
     hi = torch.full_like(b0, 1.0 - 1e-6)
@@ -131,7 +134,8 @@ def test_python_constants_match_the_kernel_source():
     """The wrapper's shared-memory model uses the kernel's tree depth and
     stage count."""
     lv = int(re.search(r"constexpr int kTreeLevels = (\d+);", SRC).group(1))
-    st = int(re.search(r"constexpr int kStages = (\d+);", SRC).group(1))
+    st = int(re.search(r"constexpr int kStages = (\d+);",
+                       DENSE_SRC).group(1))
     assert (sdca_bucket.TREE_LEVELS, sdca_bucket.STAGES) == (lv, st)
     assert tobj._BISECT_ITERS % lv == 0
 
