@@ -137,6 +137,17 @@ def ptxas_report(log: str) -> list[dict]:
     return entries
 
 
+def sass(stem: str) -> str:
+    """The SASS of the built library of `csrc/<stem>.cu` (`cuobjdump
+    -sass`, from nvcc's toolkit), building first."""
+    lib = _lib_path(stem, _sources()[stem])
+    if not lib.exists():
+        build_all()
+    tool = pathlib.Path(_nvcc()).parent / "cuobjdump"
+    return subprocess.run([str(tool), "-sass", str(lib)], check=True,
+                          capture_output=True, text=True).stdout
+
+
 def load(stem: str) -> ctypes.CDLL:
     """The loaded shared library of `csrc/<stem>.cu`, building first."""
     with _lock:

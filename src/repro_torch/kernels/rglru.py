@@ -7,7 +7,14 @@ Pallas kernel `repro/kernels/rglru.py:rglru_kernel`).  On a CPU tensor
 the same function runs `rglru_plain`, the plain PyTorch version (the
 sequential recurrence of the reference's `kernels/ref.py` `rglru_ref`,
 batched over a leading B); on a CUDA tensor it launches the kernel or
-raises.  Both return the final state in f32 beside h.
+raises.  Both return the final state in f32 beside h, and are bitwise
+equal on the card.
+
+The kernel runs one block per (batch row, GROUP channels): a chain warp
+walks t over tiles of TILE steps in a ring of STAGES stages, which
+producer warps fill with a_t and b_t, one (step, CHUNK channels) item
+per thread and tile.  The constants below mirror the kernel's; the CPU
+tests walk the same tiling in numpy.
 """
 from __future__ import annotations
 
@@ -21,6 +28,12 @@ from . import build
 RG_C = 8.0
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: the kernel's tiling (`kGroup`, `kChunk`, `kProducerWarps`, `kStages`
+#: in csrc/rglru.cu): channels per block, channels per producer item,
+#: producer warps, ring stages; a tile has one item per producer thread
+GROUP, CHUNK, PRODUCER_WARPS, STAGES = 16, 8, 4, 4
+TILE = 32 * PRODUCER_WARPS * CHUNK // GROUP
 
 #: launches of the CUDA kernel (the plain version does not count)
 launches = 0
@@ -43,16 +56,23 @@ def _exp(v):
     return torch.exp(v.double()).float()
 
 
-def rglru_plain(x, a_log, gate_a, gate_x, h0):
-    """The plain PyTorch version of `rglru_kernel`, same contract: the
-    gates of every step with the reference's operation order and clamp,
-    then h_t = a_t h_{t-1} + b_t in order."""
+def rglru_gates(x, a_log, gate_a, gate_x):
+    """a_t and b_t (f32) of every step, with the reference's operation
+    order and clamp."""
     r = torch.sigmoid(gate_a.float())
     i = torch.sigmoid(gate_x.float())
     log_a = RG_C * a_log.float() * r
     a = _exp(log_a)
     b = torch.sqrt(torch.clamp_min(1.0 - _exp(2.0 * log_a), 1e-12)) \
         * (i * x.float())
+    return a, b
+
+
+def rglru_plain(x, a_log, gate_a, gate_x, h0):
+    """The plain PyTorch version of `rglru_kernel`, same contract: the
+    gates of every step (`rglru_gates`), then h_t = a_t h_{t-1} + b_t in
+    order."""
+    a, b = rglru_gates(x, a_log, gate_a, gate_x)
     h = h0.float()
     out = torch.empty_like(a)
     for t in range(a.shape[1]):

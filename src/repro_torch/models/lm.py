@@ -93,8 +93,7 @@ def apply_block(p: dict, x, cfg, kind: str, *, positions=None,
         if mode == "decode":
             a, new_cache = rec.rglru_block_decode(p["rec"], h, cache, cfg)
         else:
-            a = rec.rglru_block_fwd(p["rec"], h, cfg)
-            new_cache = _rec_prefill_cache(p["rec"], h, cfg)
+            a, new_cache = rec.rglru_block_fwd(p["rec"], h, cfg)
     else:
         raise NotImplementedError(f"block kind {kind!r} {_TODO}")
     x = x + a
@@ -119,20 +118,6 @@ def _prefill_cache(p, h, cfg, positions) -> dict:
         inv = torch.argsort(slots)
         k, v = k[:, inv], v[:, inv]
     return {"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16)}
-
-
-def _rec_prefill_cache(p, h, cfg) -> dict:
-    """The RG-LRU state after the prompt: the scan's f32 final state
-    (not the last row of its output, which is rounded to h's dtype) and
-    the conv window."""
-    xb = h @ p["w_x"]
-    xb_c, conv_state = rec._causal_conv(xb, p["conv_w"], p["conv_b"])
-    ga = xb_c @ p["gate_a_w"]
-    gx = xb_c @ p["gate_x_w"]
-    h0 = torch.zeros((h.shape[0], cfg.rglru_dim), dtype=torch.float32,
-                     device=h.device)
-    _, h_last = rec._rglru_scan(xb_c, rec._a_log(p["a_param"]), ga, gx, h0)
-    return {"h": h_last.float(), "conv": conv_state.to(torch.bfloat16)}
 
 
 def param_specs(cfg) -> dict:

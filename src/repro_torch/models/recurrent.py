@@ -57,17 +57,21 @@ def _rglru_scan(x, a_log, ga, gx, h0):
 
 
 def rglru_block_fwd(p: dict, x, cfg):
-    """Prefill.  x: (B, S, d)."""
+    """Prefill.  x: (B, S, d).  Returns (out, the decode state after the
+    prompt): the scan's f32 final state (not the last row of its output,
+    which is rounded to x's dtype) and the conv window in bf16, from the
+    one scan this block runs."""
     gelu = act_fn("gelu")
     xb = x @ p["w_x"]
     gb = gelu(x @ p["w_gate"])
-    xb, _ = _causal_conv(xb, p["conv_w"], p["conv_b"])
+    xb, conv_state = _causal_conv(xb, p["conv_w"], p["conv_b"])
     ga = xb @ p["gate_a_w"]
     gx = xb @ p["gate_x_w"]
     h0 = torch.zeros((x.shape[0], cfg.rglru_dim), dtype=torch.float32,
                      device=x.device)
-    h, _ = _rglru_scan(xb, _a_log(p["a_param"]), ga, gx, h0)
-    return (h * gb) @ p["w_out"]
+    h, h_last = _rglru_scan(xb, _a_log(p["a_param"]), ga, gx, h0)
+    state = {"h": h_last, "conv": conv_state.to(torch.bfloat16)}
+    return (h * gb) @ p["w_out"], state
 
 
 def rglru_cache_shape(cfg, batch: int) -> dict:
