@@ -4,9 +4,9 @@ sdca_bucket        — dense bucketed SDCA sub-epoch, every worker in one
                      launch (one thread block per worker).
 sdca_sparse_bucket — the padded-CSR twin, bitwise equal to the plain
                      scan of `core.sdca`; and the feature-sharded pair
-                     (`sdca_sparse_gather_bucket`,
-                     `sdca_sparse_sharded_bucket`), one launch each per
-                     bucket over every (worker, model lane) block.
+                     (`sdca_sparse_gather_bucket` over every worker,
+                     `sdca_sparse_sharded_bucket` over every (worker,
+                     model lane) block), one launch each per bucket.
 
 Each kernel keeps its plain PyTorch version beside it and a launch
 counter; `ops` pads, lays out, unscales and checks misfits; `build`

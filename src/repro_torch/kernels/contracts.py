@@ -48,18 +48,19 @@ KERNEL_CONTRACTS: dict[str, dict] = {
             "repro_torch.kernels.sdca_sparse_bucket:smem_bytes",
         "replaces": "src/repro/kernels/sdca_sparse_bucket.py:242",
     },
-    # feature-sharded pair, one launch each per bucket over every
-    # (worker, lane) block: the partial working-set gather, then the
-    # recursion and owned scatter on the exchanged working set.  The
-    # tiles, the working set and the scratch live in global memory; the
-    # recursion places one row's operands in dynamic shared memory (in
-    # a global scratch row for a row too wide for it).
-    # -fmad=false as for the replicated kernel (the pair is bitwise
-    # equal to the scan).
+    # feature-sharded pair, one launch each per bucket: the gather of
+    # each worker's exchanged working set from its lanes' slices (one
+    # load per entry, no arithmetic, so no flags beyond the common
+    # ones), then the recursion and owned scatter on it over every
+    # (worker, lane) block.  The tiles, the working set and the scratch
+    # live in global memory; the recursion places one row's operands in
+    # dynamic shared memory (in a global scratch row for a row too wide
+    # for it), and is built with -fmad=false as the replicated kernel
+    # is (the pair is bitwise equal to the scan).
     "sdca_sparse_bucket.sdca_sparse_gather_bucket": {
         "source": "csrc/sdca_sparse_gather_bucket.cu",
         "entry": "sdca_sparse_gather_bucket_launch",
-        "nvcc_extra": ("-fmad=false",),
+        "nvcc_extra": (),
         "misfit": "repro_torch.kernels.ops:sparse_kernel_misfit",
         "smem_estimate": None,
         "replaces": "src/repro/kernels/sdca_sparse_bucket.py:424",

@@ -1,7 +1,8 @@
 // One bucket of the feature-sharded sparse SDCA sub-epoch on Hopper
 // (sm_90a): the in-bucket recursion on the exchanged working set, on
 // every lane, then the scatter of the entries the lane owns into its
-// slice of v.
+// slice of v.  W, the working set, is one (B, nnz) tile per worker,
+// read by each of its lanes' blocks.
 //
 // Replaces the TPU kernel src/repro/kernels/sdca_sparse_bucket.py,
 // sdca_sparse_sharded_bucket (bodies _sharded_kernel and
@@ -11,8 +12,8 @@
 // a left-to-right sum of nnz products (3,728 dependent adds at webspam
 // width, ~8.5 us a row), and a logistic delta is a 40-step bisection; a
 // row needs every earlier row's updates.  Bytes (the tiles, the
-// exchanged W, the touched slice entries) and operations are a small
-// fraction of what the card could do in that time.
+// worker's exchanged W, the touched slice entries) and operations are a
+// small fraction of what the card could do in that time.
 //
 // What the design does about it: one block per (worker, lane), every
 // block of the bucket in one launch.  At webspam width the idx tile
@@ -37,13 +38,14 @@
 //    barriers among themselves only.  No __syncthreads per row.
 //  * The owned scatter: a feature's cell started at its W value and
 //    folded the feature's u values in visiting order.  W is the
-//    exchange of the lanes' slices (ops.exchange_working_set), so an
-//    owned feature's W value is the lane's slice entry, and its cell is
-//    the entry's new value: the scatter writes it.
+//    worker's gather over all its lanes' slices (B3,
+//    sdca_sparse_gather_bucket.cu), so an owned feature's W value is
+//    the lane's own slice entry, and its cell is the entry's new value:
+//    the scatter writes it.
 //
 // Bitwise contract with the plain version (sdca_sparse_sharded_plain)
 // and with the replicated scan (core/sdca.py sparse_scan), for a W that
-// is the exchange of v_loc: built with -fmad=false; every product is
+// is B3's gather of this v_loc: built with -fmad=false; every product is
 // rounded before it is added, as in the scan; a feature's cell receives
 // the u values the scan adds into v[p], in the same order; the owned
 // slice entries end at the value the scan's v[p] ends.
@@ -236,7 +238,7 @@ sdca_sparse_sharded_bucket_kernel(
   const int* run_len = slot + E;
   const int* group_len = run_len + E;
   const int* rpos = group_len + E;
-  const float* Wg = Wx + (size_t)g * E;
+  const float* Wg = Wx + (size_t)w * E;  // the worker's, on every lane
   float* Sg = S + (size_t)g * E;
   float* v = v_loc + (size_t)g * d_loc;
   const long long lo = (long long)lane * d_loc;

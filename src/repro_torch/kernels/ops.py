@@ -303,20 +303,6 @@ def sdca_sparse_bucket_subepoch(obj: Objective, idx, val, yl, al, v0,
     return a_out.to(al.dtype), dv.reshape(*w, d).to(v0.dtype)
 
 
-def exchange_working_set(w_loc, idxb, b: int, d_loc: int):
-    """The lanes' exchange of bucket `b`'s partial working sets: every
-    entry takes the bits of the lane that owns its feature (the
-    reference's all-gather + owner-select, as pure data movement).
-
-    w_loc: (Wk, M, B, nnz) from `sdca_sparse_gather_bucket`, the lanes
-    stacked on axis 1; idxb: (Wk, nb, B, nnz).  Returns W (Wk, M, B,
-    nnz), the same bits on every lane.
-    """
-    owner = (idxb[:, b] // d_loc).long()[:, None]        # (Wk, 1, B, nnz)
-    return torch.take_along_dim(w_loc, owner, dim=1).expand(
-        w_loc.shape).contiguous()
-
-
 def sdca_sparse_sharded_subepoch(obj: Objective, idx, val, yl, al, v0,
                                  lam_n, sig, *, bucket: int,
                                  model_lanes: int,
@@ -326,13 +312,14 @@ def sdca_sparse_sharded_subepoch(obj: Objective, idx, val, yl, al, v0,
 
     idx/val: (*w, n_local, nnz) padded-CSR rows in visiting order; v0:
     (*w, d) each worker's replicated v, of which lane m keeps only its
-    slice [m*d_loc, (m+1)*d_loc) (`sparse_slice_width`).  Per bucket:
-    (1) one gather launch gives every lane its partial working set;
-    (2) the exchange: every entry takes the bits of the lane that owns
-    its feature (stack, owner = idx // d_loc, take_along_dim — pure
-    data movement, so the assembled working set is bitwise the
-    replicated kernel's); (3) one launch runs the bucket's recursion on
-    every lane and scatters each lane's owned entries into its slice.
+    slice [m*d_loc, (m+1)*d_loc) (`sparse_slice_width`).  Per bucket,
+    two launches: (1) the gather gives each worker its exchanged
+    working set, every entry the bits of the slice that owns its
+    feature (the reference's per-lane gather, all-gather and
+    owner-select as one load per entry: pure data movement, so the
+    working set is bitwise the replicated kernel's); (2) the recursion
+    runs the bucket on every lane and scatters each lane's owned
+    entries into its slice.
 
     Returns (a_new (*w, M, n_local), dv (*w, M, d)): every lane's duals
     (all equal) and each lane's UNSCALED global delta, zero outside its
@@ -350,9 +337,8 @@ def sdca_sparse_sharded_subepoch(obj: Objective, idx, val, yl, al, v0,
     a_new = torch.empty((Wk, M, nb, B), dtype=torch.float32,
                         device=idx.device)
     for b in range(nb):
-        w_loc = sdca_sparse_bucket.sdca_sparse_gather_bucket(idxb, b, v_loc,
-                                                             source)
-        W = exchange_working_set(w_loc, idxb, b, d_loc)
+        W = sdca_sparse_bucket.sdca_sparse_gather_bucket(
+            idxb, b, v_loc, source=source)
         a_new[:, :, b] = sdca_sparse_bucket.sdca_sparse_sharded_bucket(
             obj, idxb, valb, yb, ab, qb, links, b, W, v_loc, float(lam_n),
             float(sig), source)

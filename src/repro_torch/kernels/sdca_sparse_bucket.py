@@ -19,13 +19,15 @@ and add it entry by entry in visiting order, with no fused multiply-add
 precomputed by `core.sdca.row_sq_norms`.
 
 Feature-sharded pair (every `model` lane owns a d_loc slice of v; the
-driver is `ops.sdca_sparse_sharded_subepoch`, which exchanges the
-lanes' partial working sets between the two launches of each bucket):
+driver is `ops.sdca_sparse_sharded_subepoch`, two launches per bucket):
 
   * `sdca_sparse_gather_bucket` (`csrc/sdca_sparse_gather_bucket.cu`,
-    replaces `sdca_sparse_gather_bucket` of the reference): one lane's
-    partial working set, v_slice[idx - lo] where the lane owns the
-    feature, else exact +0.0;
+    replaces `sdca_sparse_gather_bucket` of the reference and the
+    all-gather and owner-select after it): each worker's working set,
+    every entry the bits of the held slice that owns its feature
+    (exact +0.0 where none is held); with all M slices held that is
+    the exchanged working set, with one it is the reference's
+    per-lane partial;
   * `sdca_sparse_sharded_bucket` (`csrc/sdca_sparse_sharded_bucket.cu`,
     replaces `sdca_sparse_sharded_bucket`): the bucket's recursion on
     the exchanged working set, on every lane, then the scatter of the
@@ -203,55 +205,65 @@ def sdca_sparse_bucket_kernel(obj: Objective, idx, val, yb, ab, qb, v0,
 
 
 # ---------------------------------------------------------------------------
-# Feature-sharded pair: one launch of each per bucket, over every
-# (worker, lane) block; `ops.sdca_sparse_sharded_subepoch` drives them and
-# `ops.sharded_tiles` lays out their arguments.
+# Feature-sharded pair: one launch of each per bucket, the gather over
+# every worker, the recursion over every (worker, lane) block;
+# `ops.sdca_sparse_sharded_subepoch` drives them and `ops.sharded_tiles`
+# lays out their arguments.
 # ---------------------------------------------------------------------------
 
 
-def sdca_sparse_gather_plain(idxb, b: int, v_loc):
+def sdca_sparse_gather_plain(idxb, b: int, v_held, m0: int = 0):
     """The plain PyTorch version of `sdca_sparse_gather_bucket`."""
-    Wk, M, d_loc = v_loc.shape
-    idx = idxb[:, b].long()                                 # (Wk, B, nnz)
-    lo = torch.arange(M, device=idx.device).view(1, M, 1, 1) * d_loc
-    q = idx[:, None] - lo                                   # (Wk, M, B, nnz)
-    own = (q >= 0) & (q < d_loc)
-    w = torch.gather(v_loc, 2, q.clamp(0, d_loc - 1).reshape(Wk, M, -1))
-    return torch.where(own, w.reshape(q.shape),
-                       torch.zeros((), dtype=v_loc.dtype, device=idx.device))
+    Wk, Mh, d_loc = v_held.shape
+    span = Mh * d_loc
+    q = idxb[:, b].reshape(Wk, -1).long() - m0 * d_loc      # (Wk, E)
+    held = (q >= 0) & (q < span)
+    w = torch.gather(v_held.reshape(Wk, span), 1, q.clamp(0, span - 1))
+    out = torch.where(held, w, torch.zeros((), dtype=v_held.dtype,
+                                           device=v_held.device))
+    return out.reshape(idxb[:, b].shape)
 
 
-def sdca_sparse_gather_bucket(idxb, b: int, v_loc,
+def sdca_sparse_gather_bucket(idxb, b: int, v_held, m0: int = 0, *,
                               source: str = "ad-hoc arrays"):
-    """Every lane's partial working set of bucket `b`.
+    """Bucket `b`'s working set from the held v slices.
 
-    idxb: (Wk, nb, B, nnz) int32 bucket tiles; v_loc: (Wk, M, d_loc) f32,
-    lane m of worker w owning features [m*d_loc, (m+1)*d_loc).  Returns
-    W_loc (Wk, M, B, nnz) f32: v_loc[w, m, idx - m*d_loc] where lane m
-    owns the feature, exact +0.0 elsewhere.
+    idxb: (Wk, nb, B, nnz) int32 bucket tiles; v_held: (Wk, Mh, d_loc)
+    f32, the slices of lanes m0 .. m0+Mh-1 (lane m owns features
+    [m*d_loc, (m+1)*d_loc)).  Returns W (Wk, B, nnz) f32: each entry
+    whose owner id // d_loc is held gets that slice's bits,
+    v_held[w, owner - m0, id - owner*d_loc]; any other entry exact
+    +0.0.  With every slice held (Mh = M, m0 = 0) W is the exchanged
+    working set that `sdca_sparse_sharded_bucket` reads; with Mh = 1,
+    m0 = m it is lane m's partial working set, the reference kernel's.
     """
     global gather_launches
     if idxb.device.type == "cpu":
-        return sdca_sparse_gather_plain(idxb, b, v_loc)
+        return sdca_sparse_gather_plain(idxb, b, v_held, m0)
     if idxb.device.type != "cuda":
         raise ValueError(
             f"sdca_sparse_gather_bucket: unsupported device {idxb.device}")
     Wk, nb, B, nnz = idxb.shape
-    M, d_loc = v_loc.shape[1:]
+    Mh, d_loc = v_held.shape[1:]
     dev = idxb.device
     _check("idxb", idxb, (Wk, nb, B, nnz), torch.int32, dev)
-    _check("v_loc", v_loc, (Wk, M, d_loc), torch.float32, dev)
-    if not 0 <= b < nb or Wk * M > 65_535:
-        raise ValueError(f"sparse tiles from {source}: bucket {b} of {nb}, "
-                         f"{Wk * M} (worker, lane) blocks (at most 65,535)")
-    out = torch.empty((Wk, M, B, nnz), dtype=torch.float32, device=dev)
-    fn = _fn("sdca_sparse_gather_bucket", "ppp" "iiiiii" "p")
-    err = fn(idxb.data_ptr(), v_loc.data_ptr(), out.data_ptr(), Wk * M, M,
-             nb, b, B * nnz, d_loc, torch.cuda.current_stream(dev).cuda_stream)
+    _check("v_held", v_held, (Wk, Mh, d_loc), torch.float32, dev)
+    if (not 0 <= b < nb or Wk > 65_535 or m0 < 0
+            or (m0 + Mh) * d_loc >= 2 ** 31):
+        raise ValueError(
+            f"sparse tiles from {source}: bucket {b} of {nb}, {Wk} workers "
+            f"(at most 65,535), slices {m0}..{m0 + Mh - 1} of {d_loc} "
+            f"features (ids must stay below 2^31)")
+    out = torch.empty((Wk, B, nnz), dtype=torch.float32, device=dev)
+    fn = _fn("sdca_sparse_gather_bucket", "ppp" "iiiiiii" "p")
+    err = fn(idxb.data_ptr(), v_held.data_ptr(), out.data_ptr(), Wk, nb, b,
+             B * nnz, Mh, m0, d_loc,
+             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"sdca_sparse_gather_bucket kernel launch failed: CUDA error "
-            f"{err} (Wk={Wk}, M={M}, B={B}, nnz={nnz}, d_loc={d_loc})")
+            f"{err} (Wk={Wk}, Mh={Mh}, m0={m0}, B={B}, nnz={nnz}, "
+            f"d_loc={d_loc})")
     gather_launches += 1
     return out
 
@@ -262,9 +274,10 @@ def sdca_sparse_sharded_plain(obj: Objective, idxb, valb, yb, ab, qb, links,
 
     It does not read `links`: it runs the scan of `core.sdca.sparse_scan`
     over the bucket's rows on two full-width vectors per block, one
-    holding the exchanged working set W (what the margins read) and one
-    holding the lane's slice (what the owned entries are scattered
-    into), so it checks the kernel's layout as well as its arithmetic.
+    holding its worker's exchanged working set W (what the margins
+    read) and one holding the lane's slice (what the owned entries are
+    scattered into), so it checks the kernel's layout as well as its
+    arithmetic.
     """
     del links
     Wk, M, d_loc = v_loc.shape
@@ -280,7 +293,7 @@ def sdca_sparse_sharded_plain(obj: Objective, idxb, valb, yb, ab, qb, links,
     idx, val = per_lane(idxb[:, b].long()), per_lane(valb[:, b])
     y, a, q = (per_lane(t[:, b]) for t in (yb, ab, qb))
     vw = torch.zeros((G, M * d_loc), dtype=torch.float32, device=dev)
-    vw.scatter_(1, idx.reshape(G, -1), W.reshape(G, -1))
+    vw.scatter_(1, idx.reshape(G, -1), per_lane(W).reshape(G, -1))
     vs = torch.zeros((Wk, M, M, d_loc), dtype=torch.float32, device=dev)
     torch.diagonal(vs, dim1=1, dim2=2).copy_(v_loc.transpose(1, 2))
     V = torch.cat([vw, vs.reshape(G, -1)])                  # (2G, d_pad)
@@ -309,13 +322,13 @@ def sdca_sparse_sharded_bucket(obj: Objective, idxb, valb, yb, ab, qb,
     """Bucket `b`'s recursion on every lane, and the owned scatter.
 
     idxb/valb: (Wk, nb, B, nnz) int32/f32; yb/ab/qb: (Wk, nb, B) f32;
-    links: (Wk, nb, 5, B*nnz) int32 from `ops.sharded_tiles`; W: (Wk, M,
-    B, nnz) f32 the EXCHANGED working set, `ops.exchange_working_set` of
-    this v_loc's partial working sets (the same bits on every lane of a
-    worker, and the lane's own slice bits where it owns the feature: the
-    kernel's scatter relies on it); v_loc: (Wk, M, d_loc) f32, UPDATED
-    IN PLACE (each lane adds its owned entries' updates into its slice,
-    in visiting order).
+    links: (Wk, nb, 5, B*nnz) int32 from `ops.sharded_tiles`; W: (Wk, B,
+    nnz) f32 the EXCHANGED working set, one per worker, read by each of
+    its lanes: `sdca_sparse_gather_bucket(idxb, b, v_loc)` of this very
+    v_loc (each entry the owner slice's own bits: the kernel's scatter
+    relies on it, and with any other W only the plain version is
+    right); v_loc: (Wk, M, d_loc) f32, UPDATED IN PLACE (each lane adds
+    its owned entries' updates into its slice, in visiting order).
     Returns a_new (Wk, M, B): every lane's copy of the bucket's duals.
     """
     global sharded_launches
@@ -334,7 +347,7 @@ def sdca_sparse_sharded_bucket(obj: Objective, idxb, valb, yb, ab, qb,
             ("yb", yb, (Wk, nb, B), f32), ("ab", ab, (Wk, nb, B), f32),
             ("qb", qb, (Wk, nb, B), f32),
             ("links", links, (Wk, nb, LINK_PLANES, E), torch.int32),
-            ("W", W, (Wk, M, B, nnz), f32),
+            ("W", W, (Wk, B, nnz), f32),
             ("v_loc", v_loc, (Wk, M, d_loc), f32)):
         _check(name, t, shape, dt, dev)
     if not 0 <= b < nb:

@@ -1,7 +1,8 @@
 """The port imports neither JAX nor the reference package.
 
 Parses every module of `src/repro_torch/` (the `launch/` package
-included), `chip_smoke.py` and `tools/torch_breakdown.py` with `ast`
+included), `chip_smoke.py`, `tools/torch_breakdown.py` and
+`tools/same_timer.py` with `ast`
 and fails on any import of `jax` or `repro` (other than `repro_torch`),
 at any depth: inside functions too.
 """
@@ -14,7 +15,8 @@ pytest.importorskip("torch")
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tools" / "torch_breakdown.py"]
+    ROOT / "chip_smoke.py", ROOT / "tools" / "torch_breakdown.py",
+    ROOT / "tools" / "same_timer.py"]
 
 
 def _forbidden(mod: str) -> bool:

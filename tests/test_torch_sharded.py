@@ -5,7 +5,8 @@ Covers, at small sizes on the CPU:
     `sparse_solver_plan`;
   * the plain versions of the two sharded kernels against the
     reference's Pallas kernels in interpret mode, bucket by bucket
-    (the harness of tests/test_kernels.py's emulated exchange);
+    (the harness of tests/test_kernels.py's emulated exchange; the
+    gather's own forms are in tests/test_torch_gather.py);
   * `ops.sharded_tiles`' links, walked by a numpy copy of the CUDA
     kernel's loops (the kernel itself runs only on the card, where
     chip_smoke.py holds it against its plain version);
@@ -120,11 +121,12 @@ def test_sharded_routes_against_reference(n_local, nnz, d, B, M, route,
 @pytest.mark.parametrize("M", [2, 4])
 def test_sharded_pair_plain_vs_reference(name, d, M):
     """Bucket by bucket, every lane: the gather is BITWISE the
-    reference's; the sharded bucket is within rtol 1e-6, atol 1e-6 of
-    it, because the reference sums each margin with XLA's reduction and
-    the port left to right (hinge divides by q, which turns a one-ulp
-    margin difference into an absolute one near zero).  Both sides get
-    the reference's state at every bucket."""
+    reference's per-lane gathers after its all-gather and owner-select;
+    the sharded bucket is within rtol 1e-6, atol 1e-6 of it, because
+    the reference sums each margin with XLA's reduction and the port
+    left to right (hinge divides by q, which turns a one-ulp margin
+    difference into an absolute one near zero).  Both sides get the
+    reference's state at every bucket."""
     n, nnz, B = 32, 8, 16
     idx, val, y, a, v0 = _worker_data(name, 1, n, d, nnz, seed=3 + M + d)
     obj, jo = get_objective(name), jobj.get_objective(name)
@@ -138,16 +140,18 @@ def test_sharded_pair_plain_vs_reference(name, d, M):
         idx_t = jnp.asarray(idxb[0, b].numpy())
         parts = jnp.stack([jsb.sdca_sparse_gather_bucket(
             idx_t, jv[k], jnp.int32(k * d_loc), True) for k in range(M)])
-        w_loc = ks.sdca_sparse_gather_bucket(idxb, b, v_loc)
-        np.testing.assert_array_equal(w_loc[0].numpy(), np.asarray(parts))
-        W = ops.exchange_working_set(w_loc, idxb, b, d_loc)
+        owner = (idx_t // jnp.int32(d_loc)).astype(jnp.int32)
+        jW = np.asarray(jnp.take_along_axis(parts, owner[None], axis=0)[0])
+        W = ks.sdca_sparse_gather_bucket(idxb, b, v_loc)
+        np.testing.assert_array_equal(W[0].numpy().view(np.int32),
+                                      jW.view(np.int32))
         a_t = ks.sdca_sparse_sharded_bucket(obj, idxb, valb, yb, ab, qb,
                                             links, b, W, v_loc, LAM_N, SIG)
         for k in range(M):
             ja, jv[k] = jsb.sdca_sparse_sharded_bucket(
                 jo, idx_t, jnp.asarray(valb[0, b].numpy()),
                 jnp.asarray(yb[0, b].numpy()), jnp.asarray(ab[0, b].numpy()),
-                jnp.asarray(qb[0, b].numpy()), jnp.asarray(W[0, k].numpy()),
+                jnp.asarray(qb[0, b].numpy()), jnp.asarray(jW),
                 jv[k], scal, jnp.int32(k * d_loc), True)
             np.testing.assert_allclose(a_t[0, k].numpy(), np.asarray(ja),
                                        rtol=1e-6, atol=1e-6)
@@ -179,7 +183,7 @@ def _emulate_sharded_kernel(obj, idxb, valb, yb, ab, qb, links, b, W,
         val = valb[w, b].reshape(-1).numpy()
         pos, slot, run_len, group_len, rpos = links[w, b].numpy()
         S = np.full(E, np.nan, np.float32)
-        Wg = W[w, lane].reshape(-1).numpy()
+        Wg = W[w].reshape(-1).numpy()         # the worker's, every lane
         for t in range(E):
             if group_len[t] > 0:
                 S[pos[t]] = Wg[t]
@@ -222,10 +226,8 @@ def test_kernel_walk_over_links_is_the_plain_bucket(name, d, M):
     idxb, valb, yb, ab, qb, links, v_loc = ops.sharded_tiles(
         *map(torch.as_tensor, (idx, val, y, a, v0)), bucket=B,
         model_lanes=M)
-    d_loc = v_loc.shape[-1]
     for b in range(n // B):
-        w_loc = ks.sdca_sparse_gather_bucket(idxb, b, v_loc)
-        W = ops.exchange_working_set(w_loc, idxb, b, d_loc)
+        W = ks.sdca_sparse_gather_bucket(idxb, b, v_loc)
         a_e, v_e = _emulate_sharded_kernel(obj, idxb, valb, yb, ab, qb,
                                            links, b, W, v_loc, LAM_N, SIG)
         a_p = ks.sdca_sparse_sharded_bucket(obj, idxb, valb, yb, ab, qb,
@@ -237,7 +239,7 @@ def test_kernel_walk_over_links_is_the_plain_bucket(name, d, M):
 def test_kernel_walk_on_the_exchanged_w_keeps_signed_zeros(name):
     """The kernel's scatter writes each owned feature's final cell, which
     started at the feature's W value: that is the slice's new value
-    because the exchange hands every lane the owner's own bits.  Shown
+    because the gather hands every lane the owner's own bits.  Shown
     with -0.0 in the slice at an id of every bucket's first row (a sum
     of the lanes' partial working sets would turn it into +0.0): W
     holds the slice's bits at every owned entry, and the emulated walk
@@ -253,14 +255,13 @@ def test_kernel_walk_on_the_exchanged_w_keeps_signed_zeros(name):
     d_loc = v_loc.shape[-1]
     negz = 0
     for b in range(n // B):
-        w_loc = ks.sdca_sparse_gather_bucket(idxb, b, v_loc)
-        W = ops.exchange_working_set(w_loc, idxb, b, d_loc)
+        W = ks.sdca_sparse_gather_bucket(idxb, b, v_loc)
         for w in range(Wk):
             ids = idxb[w, b].reshape(-1).long()
             owner, q = ids // d_loc, ids % d_loc
             for lane in range(M):
                 mine = owner == lane
-                got = W[w, lane].reshape(-1)[mine]
+                got = W[w].reshape(-1)[mine]
                 want = v_loc[w, lane, q[mine]]
                 assert torch.equal(got.view(torch.int32),
                                    want.view(torch.int32))

@@ -23,8 +23,10 @@ The `sharded` path is `chip_smoke.py`'s feature-sharded webspam run
 epoch it times, on chunk 0 of the next epoch's tiles: the layout
 (`ops.sharded_tiles`: the q precompute `row_sq_norms`, the links'
 sort) per chunk, one launch of each kernel (the sharded bucket once per
-objective) and the exchange per bucket; then one whole epoch and a
-profiled one.
+objective) and the library call that computes B3's function
+(`torch.gather` on the flattened slices, int64 index built beforehand)
+per bucket; then one whole epoch and a profiled one, with the pair's
+device time and launches in that epoch (`pair_device_us`).
 
 The `lm` path is `chip_smoke.py`'s recurrentgemma-2b serving run
 (random weights, batch 2 x 4,096 prompt tokens).  After a warm-up
@@ -140,13 +142,14 @@ def breakdown_sharded() -> dict:
     per_chunk_ms = {
         "q_precompute": cs.cuda_ms(lambda: sdca.row_sq_norms(valb), 1),
         "links": cs.cuda_ms(lambda: ops._bucket_links(idxb), 1)}
-    w_loc = ks.sdca_sparse_gather_bucket(idxb, 0, v_loc)
-    W = ops.exchange_working_set(w_loc, idxb, 0, d_loc)
+    W = ks.sdca_sparse_gather_bucket(idxb, 0, v_loc)
+    v_flat = v_loc.view(Wk, -1)
+    idx64 = idxb[:, 0].reshape(Wk, -1).long()
     per_bucket_ms = {
         "sdca_sparse_gather_bucket": cs.cuda_ms(
             lambda: ks.sdca_sparse_gather_bucket(idxb, 0, v_loc), 20),
-        "exchange": cs.cuda_ms(
-            lambda: ops.exchange_working_set(w_loc, idxb, 0, d_loc), 20)}
+        "library_gather": cs.cuda_ms(
+            lambda: torch.gather(v_flat, 1, idx64), 20)}
     for name in ("ridge", "hinge", "logistic"):
         obj = get_objective(name)
         v_t = v_loc.clone()
@@ -168,8 +171,13 @@ def breakdown_sharded() -> dict:
                      "d": scale.d, "d_loc": d_loc, "n": scale.n,
                      "chunks": scale.chunks, "buckets_per_chunk": nb},
            "epoch_s": epoch_s, "per_chunk_ms": per_chunk_ms,
-           "per_bucket_ms": per_bucket_ms,
-           "profile": profile_epoch(lambda: one_epoch(2), epoch_s)}
+           "per_bucket_ms": per_bucket_ms}
+    prof = profile_epoch(lambda: one_epoch(2), epoch_s, full=True)
+    rec["pair_device_us"] = {          # (device us, launches) in the epoch
+        k: v for k, v in prof.pop("by_name").items()
+        if "sdca_sparse_gather_bucket_kernel" in k
+        or "sdca_sparse_sharded_bucket_kernel" in k}
+    rec["profile"] = prof
     print(json.dumps(rec), flush=True)
     return rec
 
