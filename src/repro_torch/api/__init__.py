@@ -1,4 +1,30 @@
-"""The public training API: `Session` on resident tensors."""
+"""The public training API: estimators + Session.
+
+One front door for every data source the port takes:
+
+    from repro_torch import api
+    clf = api.LogisticRegression(lanes=8, bucket=8).fit(X, y)   # on the card
+    clf = api.LogisticRegression(device="cpu").fit(X, y)        # plain versions
+    s = api.Session("higgs"); s.fit(until=20)
+
+Everything older (`core.GLMTrainer`, `core.StreamedGLMTrainer`,
+`core.fit_dataset`, `core.cocoa.epoch_sim*`) is a deprecation shim over
+these (`ReproDeprecationWarning`).  The reference's `HealthMonitor` and
+`HealthPolicy` (its resilience runtime) come with ROADMAP A12 and are
+not exported yet.
+"""
+from .callbacks import (BenchmarkRecorder, Callback, CheckpointHook,
+                        EarlyStopping, GapLogger)
+from .deprecation import ReproDeprecationWarning, warn_deprecated
+from .estimators import (GLMEstimator, LinearSVC, LogisticRegression,
+                         NotFittedError, Ridge, load)
 from .session import Session, margins
 
-__all__ = ["Session", "margins"]
+__all__ = [
+    "BenchmarkRecorder", "Callback", "CheckpointHook", "EarlyStopping",
+    "GapLogger",
+    "ReproDeprecationWarning", "warn_deprecated",
+    "GLMEstimator", "LinearSVC", "LogisticRegression", "NotFittedError",
+    "Ridge", "load",
+    "Session", "margins",
+]

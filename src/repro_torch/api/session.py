@@ -172,7 +172,9 @@ class Session:
             if pad:
                 y, X, _, _ = pad_examples(y, _pad_multiple(self.spec, B), X=X)
             self.n = int(y.shape[0])
-            self.X = torch.as_tensor(X, device=self.device)
+            # an sklearn-layout caller hands in X.T, a transposed view:
+            # the tiling and the gap read X as a contiguous (d, n)
+            self.X = torch.as_tensor(X, device=self.device).contiguous()
         if self.n > self.n_examples:
             self.lam *= self.n_examples / self.n
         self.y = torch.as_tensor(y, device=self.device)
@@ -329,9 +331,24 @@ class Session:
 
     def load_state_dict(self, st: dict[str, Any]) -> None:
         """Restore training state produced by `state_dict` (or by
-        `repro_torch.convert.session_state` from the reference)."""
-        self.alpha = torch.tensor(np.asarray(st["alpha"], np.float32),
-                                  device=self.device)
-        self.v = torch.tensor(np.asarray(st["v"], np.float32),
-                              device=self.device)
+        `repro_torch.convert.session_state` from the reference); leaves
+        may be arrays or tensors on any device, and are copied."""
+        self.alpha, self.v = (
+            torch.as_tensor(st[k]).to(self.device, torch.float32, copy=True)
+            for k in ("alpha", "v"))
         self.epochs_done = int(st["epoch"])
+
+    def save(self, path, *, meta: Optional[dict] = None) -> None:
+        """Atomic on-disk snapshot of the solver state (+ meta), in the
+        reference's checkpoint layout."""
+        from repro_torch.checkpoint import save_tree
+        save_tree(path, self.state_dict(),
+                  meta=dict(meta or {}, epochs_done=self.epochs_done))
+
+    def load(self, path) -> dict:
+        """Restore solver state saved by `save` (by either package) onto
+        the session's device; returns the meta dict."""
+        from repro_torch.checkpoint import restore_tree
+        st, meta = restore_tree(path, self.state_dict(), device=self.device)
+        self.load_state_dict(st)
+        return meta

@@ -15,10 +15,13 @@ import torch
 from repro_torch.core.config import EngineConfig
 
 __all__ = ["session_state", "engine_config", "lm_params_from_reference",
-           "SOLVER_NAMES"]
+           "SOLVER_NAMES", "REFERENCE_SOLVER_NAMES"]
 
 #: reference local-solver names -> the port's
 SOLVER_NAMES = {"xla": "torch", "pallas": "kernel", "auto": "auto"}
+#: the port's local-solver names -> the reference's (what a checkpoint
+#: the port writes holds, so the reference can read it)
+REFERENCE_SOLVER_NAMES = {v: k for k, v in SOLVER_NAMES.items()}
 
 
 def session_state(st: Mapping[str, Any]) -> dict[str, Any]:

@@ -1,12 +1,16 @@
-"""LM serving: prefill a prompt batch, then decode greedily.
+"""Batched serving: LM decode, and GLM batch prediction.
+
+LM path (prefill a prompt batch, then decode greedily):
 
     python -m repro_torch.launch.serve --arch smollm-360m [--smoke] \
         [--batch 4] [--prompt-len 32] [--gen 16] [--device cuda]
 
-Mirrors the LM half of the reference's `launch/serve.py` (the GLM half,
-`glm_predict_batch` / `glm_predict_streamed` / `serve_glm`, waits:
-ROADMAP A13).  Runs on the card unless `device="cpu"`; there the
-kernels' plain versions run.
+GLM path: `glm_predict_batch` predicts through a fitted
+`repro_torch.api` estimator (the estimator is the serving unit), dense,
+scipy sparse or padded-CSR input, on the estimator's device.  The
+reference's `glm_predict_streamed` and `serve_glm` read the bucket-tile
+cache, so they wait on ROADMAP A7 (and stay in A13).  Runs on the card
+unless `device="cpu"`; there the kernels' plain versions run.
 """
 from __future__ import annotations
 
@@ -21,6 +25,31 @@ from repro_torch.device import resolve_device
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models import lm
 from repro_torch.models.layers import tree_leaves, tree_map
+
+
+# ---------------------------------------------------------------------------
+# GLM batch prediction
+# ---------------------------------------------------------------------------
+
+
+def glm_predict_batch(est, X, *, batch: int = 8192,
+                      proba: bool = False) -> np.ndarray:
+    """Predict in fixed-size batches through a fitted estimator.
+
+    ``X`` is sklearn-layout dense ``(n, d)``, a scipy sparse matrix, or
+    an engine padded-CSR ``(idx, val)`` pair.  Batching bounds the
+    host-side copies a request makes at `batch` rows, whatever its
+    size; each batch's rows go to the estimator's device.
+    """
+    pair = isinstance(X, (tuple, list))
+    n = X[0].shape[0] if pair else X.shape[0]
+    fn = est.predict_proba if proba else est.predict
+    outs = []
+    for s in range(0, n, batch):
+        sl = ((X[0][s:s + batch], X[1][s:s + batch]) if pair
+              else X[s:s + batch])
+        outs.append(np.asarray(fn(sl)))
+    return np.concatenate(outs) if outs else np.empty((0,))
 
 
 def _sync(dev: torch.device) -> None:
