@@ -5,7 +5,7 @@ One front door for every data source the port takes:
     from repro_torch import api
     clf = api.LogisticRegression(lanes=8, bucket=8).fit(X, y)   # on the card
     clf = api.LogisticRegression(device="cpu").fit(X, y)        # plain versions
-    s = api.Session("higgs"); s.fit(until=20)
+    s = api.Session("higgs", streamed=True); s.fit(until=20)   # out of core
 
 Everything older (`core.GLMTrainer`, `core.StreamedGLMTrainer`,
 `core.fit_dataset`, `core.cocoa.epoch_sim*`) is a deprecation shim over

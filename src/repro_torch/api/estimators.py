@@ -10,8 +10,11 @@ Estimators follow the sklearn protocol (`fit/predict/score/get_params/
 set_params`, `coef_`/`classes_`/`n_iter_` post-fit attributes, keyword-
 only constructor params so `sklearn.clone` works) and speak sklearn's
 ROW-major layout `X (n_samples, n_features)`; the underlying `Session`
-speaks the engine's `(d, n)`.  `fit` takes dense arrays, scipy sparse
-matrices, padded-CSR `(idx, val)` pairs and registry dataset names.
+speaks the engine's `(d, n)`.  `fit` takes everything a Session does —
+dense arrays, scipy sparse matrices, padded-CSR `(idx, val)` pairs,
+registry dataset names, `TileCache`s and `ChunkFeed`s — so the same
+estimator trains in memory or out of core (``streamed=True``,
+``cache_dir=``).
 
 The device is a property of the run, not of the model: ``device=``
 (default ``"cuda"``, which raises without a GPU) goes to the `Session`
@@ -84,9 +87,9 @@ class GLMEstimator:
     keyword-only and stored under its own name, which is exactly what
     `get_params`/`set_params` (and therefore `sklearn.base.clone`)
     require.  ``local_solver`` takes the port's names
-    (``"auto"``/``"torch"``/``"kernel"``).  ``streamed``, ``cache_dir``,
-    ``health`` and ``journal_dir`` are kept for the reference's
-    signature; `fit` raises for them (ROADMAP A7, A8, A12).
+    (``"auto"``/``"torch"``/``"kernel"``).  ``health`` and
+    ``journal_dir`` are kept for the reference's signature; `fit` raises
+    for them (ROADMAP A12).
     """
 
     _objective = "logistic"

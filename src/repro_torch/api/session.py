@@ -1,4 +1,4 @@
-"""`Session`: the owner of GLM solver state, on resident tensors.
+"""`Session`: the owner of GLM solver state for every front end.
 
     s = Session((X, y), objective="logistic", lam=1e-3, cfg=cfg)
     s.epoch()                 # run exactly one epoch, get metrics back
@@ -7,16 +7,22 @@
 
 `fit` drives a callback protocol (`on_epoch_end(metrics) -> stop?`).
 
-Data sources accepted by the constructor:
+Data sources accepted by the constructor, uniformly:
 
   * ``(X, y)``            dense arrays, engine layout ``X (d, n)``;
   * ``((idx, val), y)``   padded-CSR sparse (requires ``d=``);
-  * ``"higgs"``           any `repro_torch.data.registry` name.
+  * ``"higgs"``           any `repro_torch.data.registry` name (honouring
+                          ``streamed=``/``cache_dir=``/``data_dir=``);
+  * a `TileCache`         in memory (``streamed=False``) or out of core;
+  * a `ChunkFeed`         streamed training over any feed.
 
-All data is resident on the session's device.  Streamed sources, tile
-caches, meshes and the resilience runtime of the reference's Session
-are later slices of the port and raise `NotImplementedError` naming
-their ROADMAP queue item.
+Resident sources live on the session's device; streamed ones
+(``streamed=True``, or a `ChunkFeed`) keep the examples on the host and
+copy a chunk at a time (`repro_torch.core.engine.run_epoch_streamed`),
+bitwise equal to resident training on the same data and configuration.
+Meshes and the resilience runtime of the reference's Session are later
+slices of the port and raise `NotImplementedError` naming their ROADMAP
+queue item.
 
 Examples are PADDED (x=0, y=+1 — inert, a zero row never moves v) up
 to the multiple the chosen topology needs; ``n_examples`` records the
@@ -32,13 +38,13 @@ import numpy as np
 import torch
 
 from repro_torch.core import engine, objectives
-from repro_torch.core.bucketing import make_plan
+from repro_torch.core.bucketing import BucketPlan, make_plan
 from repro_torch.core.config import EngineConfig, as_engine_config
 from repro_torch.core.objectives import Objective, get_objective
 from repro_torch.core.partition import PartitionPlan
 from repro_torch.core.trainer import FitResult
-from repro_torch.data.cache import pad_examples
-from repro_torch.device import resolve_device
+from repro_torch.data.cache import ArrayFeed, pad_examples
+from repro_torch.device import resolve_device, same_device
 
 Tensor = torch.Tensor
 
@@ -52,6 +58,14 @@ def margins(v: Tensor, data) -> Tensor:
         idx, val = data
         return torch.sum(v[idx.long()] * val, dim=1)
     return data.T @ v
+
+
+def _to_device(data, device):
+    """Host arrays (a dense block or an (idx, val) pair) -> tensors on
+    `device`."""
+    if isinstance(data, (tuple, list)):
+        return tuple(_to_device(a, device) for a in data)
+    return torch.from_numpy(np.ascontiguousarray(data)).to(device)
 
 
 def _pad_multiple(spec: EngineConfig, bucket: int) -> int:
@@ -80,36 +94,39 @@ class Session:
                  d: Optional[int] = None, bucket: Optional[int] = None,
                  n: Optional[int] = None, data_dir=None, pad: bool = True,
                  device="cuda", streamed: bool = False, mesh=None,
-                 cache_dir=None, health=None, journal_dir=None,
-                 faults=None):
-        if streamed:
-            _unported("streamed=True (out-of-core training)", "A8")
+                 cache_dir=None, nnz_multiple: Optional[int] = None,
+                 health=None, journal_dir=None, faults=None):
         if mesh is not None:
             _unported("mesh= (multi-GPU training)", "A11")
-        if cache_dir is not None:
-            _unported("cache_dir= (the tile cache)", "A7")
         if health is not None or journal_dir is not None or faults is not None:
             _unported("health=/journal_dir=/faults= (resilience)", "A12")
         self.device = resolve_device(device)
         self.spec = as_engine_config(cfg) if cfg is not None \
             else EngineConfig()
+        self.streamed = streamed
+        self.cache = None
+        self.feed = None
         self.solver_plan = None      # the planner is ROADMAP queue A10
         self.history: list[dict[str, float]] = []
 
         # `Session((X, y))` / `Session(((idx, val), y))` sugar — only
         # when the second element is labels-shaped (1-D)
         if (y is None and isinstance(data, (tuple, list))
-                and len(data) == 2 and np.ndim(data[1]) == 1):
+                and len(data) == 2 and not hasattr(data[0], "fetch")
+                and np.ndim(data[1]) == 1):
             data, y = data
 
         if isinstance(data, str):
             self._init_from_registry(data, objective=objective, lam=lam,
                                      bucket=bucket, n=n, d=d,
-                                     data_dir=data_dir)
-        elif hasattr(data, "gather_buckets"):
-            _unported("TileCache sources", "A7")
-        elif hasattr(data, "fetch"):
-            _unported("ChunkFeed sources", "A8")
+                                     data_dir=data_dir, streamed=streamed,
+                                     cache_dir=cache_dir,
+                                     nnz_multiple=nnz_multiple)
+        elif hasattr(data, "gather_buckets"):      # TileCache
+            self._init_from_cache(data, objective=objective, lam=lam,
+                                  streamed=streamed)
+        elif hasattr(data, "fetch"):               # ChunkFeed
+            self._init_from_feed(data, objective=objective, lam=lam)
         else:
             if y is None:
                 raise TypeError("array data requires labels: "
@@ -117,7 +134,7 @@ class Session:
             self._init_from_arrays(data, y, objective=objective, lam=lam,
                                    d=d, bucket=bucket, pad=pad)
 
-    # -- construction -------------------------------------------------------
+    # -- construction: one per data source ----------------------------------
 
     def _resolve_obj(self, objective, lam, default_obj="logistic",
                      default_lam=1e-3) -> None:
@@ -134,9 +151,10 @@ class Session:
 
     def _init_from_arrays(self, data, y, *, objective, lam, d, bucket, pad,
                           trusted_rows: bool = False) -> None:
-        """Resident-array setup.  When padding grows n -> n', lam is
-        rescaled by n/n' so the padded objective keeps the USER's argmin
-        exactly (lam*n, the dual scaling, is unchanged)."""
+        """Resident-array setup (or, with ``streamed=True``, an
+        `ArrayFeed` over the host arrays).  When padding grows n -> n',
+        lam is rescaled by n/n' so the padded objective keeps the USER's
+        argmin exactly (lam*n, the dual scaling, is unchanged)."""
         self._resolve_obj(objective, lam)
         sparse = isinstance(data, (tuple, list))
         y = np.asarray(y, np.float32)
@@ -164,19 +182,32 @@ class Session:
                 y, _, idx, val = pad_examples(
                     y, _pad_multiple(self.spec, B), idx=idx, val=val)
             self.n, self.d = int(y.shape[0]), int(d)
-            self.idx = torch.as_tensor(idx, device=self.device)
-            self.val = torch.as_tensor(val, device=self.device)
         else:
             X = np.asarray(data, np.float32)
             self.d = int(X.shape[0])
             if pad:
                 y, X, _, _ = pad_examples(y, _pad_multiple(self.spec, B), X=X)
             self.n = int(y.shape[0])
+        if self.n > self.n_examples:
+            self.lam *= self.n_examples / self.n
+
+        if self.streamed:
+            # drive the out-of-core loop over the HOST arrays: only
+            # alpha, v and a chunk at a time go to the device
+            feed = (ArrayFeed(y, idx=idx, val=val, d=self.d, bucket=B,
+                              device=self.device) if sparse
+                    else ArrayFeed(y, X=X, bucket=B, device=self.device))
+            self._init_from_feed(feed, objective=self.obj, lam=self.lam,
+                                 rows_checked=True, lam_scaled=True)
+            return
+
+        if sparse:
+            self.idx = torch.as_tensor(idx, device=self.device)
+            self.val = torch.as_tensor(val, device=self.device)
+        else:
             # an sklearn-layout caller hands in X.T, a transposed view:
             # the tiling and the gap read X as a contiguous (d, n)
             self.X = torch.as_tensor(X, device=self.device).contiguous()
-        if self.n > self.n_examples:
-            self.lam *= self.n_examples / self.n
         self.y = torch.as_tensor(y, device=self.device)
         self.sparse = sparse
 
@@ -190,18 +221,113 @@ class Session:
             n_buckets=self.bplan.n_buckets, pods=dep.pods,
             lanes=dep.lanes, mode=algo.partition, seed=algo.seed,
             redeal_frac=algo.redeal_frac)
-        self.alpha = torch.zeros(self.n, dtype=torch.float32,
-                                 device=self.device)
-        self.v = torch.zeros(self.d, dtype=torch.float32, device=self.device)
-        self.epochs_done = 0
+        self._init_state()
+
+    def _init_from_cache(self, cache, *, objective, lam, streamed) -> None:
+        """A `TileCache`: loaded whole onto the device, or streamed
+        through its `TileFeed`.  Cache tiles arrive pre-padded, so the
+        padded-objective lam rescale of `_init_from_arrays` is applied
+        here (n_examples / n)."""
+        meta = cache.meta
+        self._resolve_obj(objective, lam, default_obj=meta.objective)
+        if meta.n > meta.n_examples:
+            self.lam *= meta.n_examples / meta.n
+        algo = self.spec.algo
+        if algo.bucket not in (0, 1, meta.bucket):
+            raise ValueError(
+                f"cfg bucket={algo.bucket} != cache bucket={meta.bucket}; "
+                f"rebuild the cache at the training bucket size")
+        self.cache = cache
+        if not streamed:
+            arrays, y = cache.load_arrays()
+            # writable copies where the arrays are views of the read-only
+            # mmap (a CPU tensor would alias them)
+            arrays, y = (tuple(np.require(a, requirements="W")
+                               for a in arrays) if meta.kind == "sparse"
+                         else np.require(arrays, requirements="W"),
+                         np.require(y, requirements="W"))
+            # the registry's caches hold deduped rows: don't re-sort the
+            # whole dataset to prove it again
+            kw = dict(objective=self.obj, lam=self.lam, bucket=meta.bucket,
+                      pad=False, trusted_rows=True)
+            self._init_from_arrays(
+                arrays, y, d=meta.d if meta.kind == "sparse" else None, **kw)
+            self.n_examples = meta.n_examples
+            return
+        self.streamed = True
+        self._init_from_feed(cache.feed(device=self.device),
+                             objective=self.obj, lam=self.lam,
+                             rows_checked=True, lam_scaled=True)
+
+    def _init_from_feed(self, feed, *, objective, lam,
+                        rows_checked: bool = False,
+                        lam_scaled: bool = False) -> None:
+        self._resolve_obj(objective, lam)
+        fdev = getattr(feed, "device", None)
+        if fdev is None or not same_device(fdev, self.device):
+            raise ValueError(
+                f"a ChunkFeed names the device its tensors land on "
+                f"(`device`); this one gives {fdev}, the session runs on "
+                f"{self.device}")
+        self.feed = feed
+        self.streamed = True
+        self.sparse = bool(feed.sparse)
+        self.n, self.d = int(feed.n), int(feed.d)
+        if (not rows_checked and self.sparse and self._kernel_runs()
+                and getattr(feed, "cache", None) is None):
+            # a user-supplied feed: check its rows here if it exposes
+            # them as host arrays (ArrayFeed); opaque ChunkFeeds are
+            # bound by the protocol's CSR invariant instead
+            fidx = getattr(feed, "idx", None)
+            fval = getattr(feed, "val", None)
+            if fidx is not None and fval is not None:
+                from repro_torch.data.formats import \
+                    raise_on_duplicate_nonzeros
+                raise_on_duplicate_nonzeros(np.asarray(fidx),
+                                            np.asarray(fval),
+                                            "ad-hoc sparse rows")
+        src_cache = getattr(feed, "cache", None)
+        if src_cache is not None:
+            self.n_examples = src_cache.meta.n_examples
+            if not lam_scaled and self.n > self.n_examples:
+                # a cache-backed feed handed to Session directly: the
+                # same rescale as _init_from_cache
+                self.lam *= self.n_examples / self.n
+        elif not hasattr(self, "n_examples"):
+            self.n_examples = self.n
+        algo, dep = self.spec.algo, self.spec.deployment
+        if algo.bucket not in (0, 1, feed.bucket):
+            raise ValueError(
+                f"cfg bucket={algo.bucket} != feed bucket={feed.bucket}")
+        self.bplan = BucketPlan(n=self.n, bucket=feed.bucket,
+                                n_buckets=self.n // feed.bucket)
+        self.plan = PartitionPlan(
+            n_buckets=self.bplan.n_buckets, pods=dep.pods,
+            lanes=dep.lanes, mode=algo.partition, seed=algo.seed,
+            redeal_frac=algo.redeal_frac)
+        self._init_state()
+        self._epoch_fn = engine.make_streamed_epoch(
+            self.obj, self.spec, self.plan, feed, lam=self.lam,
+            device=self.device)
 
     def _init_from_registry(self, name, *, objective, lam, bucket, n, d,
-                            data_dir) -> None:
+                            data_dir, streamed=False, cache_dir=None,
+                            nnz_multiple=None) -> None:
         from repro_torch.data import registry
         spec = registry.get_spec(name)
         objective = objective or spec.objective
         lam = spec.lam if lam is None else lam
         B = bucket or max(self.spec.algo.bucket, 1)
+        if streamed or cache_dir is not None:
+            # nnz_multiple pads raw svmlight rows to an aligned width
+            # (part of the cache key, as in the reference)
+            cache = registry.materialize(
+                name, cache_dir, bucket=B, pods=self.spec.deployment.pods,
+                n=n, d=d, pad_multiple=_pad_multiple(self.spec, B),
+                nnz_multiple=nnz_multiple, data_dir=data_dir)
+            self._init_from_cache(cache, objective=objective, lam=lam,
+                                  streamed=streamed)
+            return
         ds = registry.get_dataset(name, n=n, d=d, data_dir=data_dir)
         if ds.sparse:
             # registry samplers dedupe rows at the source
@@ -212,9 +338,20 @@ class Session:
             self._init_from_arrays(ds.X, ds.y, objective=objective,
                                    lam=lam, d=None, bucket=B, pad=True)
 
+    def _init_state(self) -> None:
+        if not hasattr(self, "n_examples"):
+            self.n_examples = self.n
+        self.alpha = torch.zeros(self.n, dtype=torch.float32,
+                                 device=self.device)
+        self.v = torch.zeros(self.d, dtype=torch.float32, device=self.device)
+        self.epochs_done = 0
+
     # -- epoch-level control ------------------------------------------------
 
-    def _run_epoch(self, alpha: Tensor, v: Tensor, epoch: int):
+    def _run_epoch(self, alpha: Tensor, v: Tensor, epoch: int,
+                   stats: Optional[dict] = None):
+        if self.feed is not None:
+            return self._epoch_fn(alpha, v, epoch, stats=stats)
         if self.sparse:
             return engine.sim_epoch_sparse(
                 self.obj, self.idx, self.val, self.y, alpha, v, self.lam,
@@ -223,15 +360,18 @@ class Session:
             self.obj, self.X, self.y, alpha, v, self.lam, self.plan,
             self.bplan, self.spec, epoch, device=self.device)
 
-    def epoch(self) -> dict[str, float]:
+    def epoch(self, *, stats: Optional[dict] = None) -> dict[str, float]:
         """Run exactly one epoch; returns {'epoch', 'rel_change', 't'}.
 
         't' is this epoch's duration when called standalone; inside
-        `fit` it is rewritten to the cumulative fit wall-clock."""
+        `fit` it is rewritten to the cumulative fit wall-clock.  On a
+        streamed session ``stats`` receives the epoch's ingest-overlap
+        metrics (`engine.run_epoch_streamed`; a device synchronize at
+        the epoch's end)."""
         t0 = time.perf_counter()
         v_prev = self.v
         self.alpha, self.v = self._run_epoch(self.alpha, self.v,
-                                             self.epochs_done)
+                                             self.epochs_done, stats=stats)
         self.epochs_done += 1
         rel = float(torch.linalg.norm(self.v - v_prev)
                     / torch.clamp_min(torch.linalg.norm(self.v), 1e-30))
@@ -303,8 +443,37 @@ class Session:
 
     # -- diagnostics ----------------------------------------------------------
 
+    def _streamed_primal_dual(self, gbuckets: int = 256
+                              ) -> tuple[float, float]:
+        """One streaming pass over the cache (or feed), `gbuckets`
+        buckets at a time, never holding the examples whole on the
+        device: -> (primal, dual).  Each group's loss and conjugate are
+        summed on the device in f32, the groups' sums on the host in
+        Python floats (as the reference does), so the value is not
+        bitwise the resident gap's."""
+        nb, B = self.bplan.n_buckets, self.bplan.bucket
+        dev = self.device
+        losses, conjs = [], []
+        for start in range(0, nb, gbuckets):
+            bids = np.arange(start, min(start + gbuckets, nb))
+            if self.cache is not None:
+                data, yb = self.cache.gather_buckets(bids)
+                data, yb = _to_device(data, dev), _to_device(yb, dev)
+            else:
+                data, yb = self.feed.fetch(bids)
+            m = margins(self.v, data)
+            losses.append(torch.sum(self.obj.loss(m, yb)))
+            a = self.alpha[start * B:start * B + yb.shape[0]]
+            conjs.append(torch.sum(self.obj.conj_neg(a, yb)))
+        loss_sum = sum(torch.stack(losses).tolist())
+        conj_sum = sum(torch.stack(conjs).tolist())
+        reg = 0.5 * self.lam * float(torch.sum(self.v ** 2))
+        return loss_sum / self.n + reg, -conj_sum / self.n - reg
+
     def primal(self) -> float:
         """Primal objective P(v) at the current shared vector."""
+        if self.streamed:
+            return self._streamed_primal_dual()[0]
         if self.sparse:
             m = margins(self.v, (self.idx, self.val))
             return float(torch.sum(self.obj.loss(m, self.y)) / self.n
@@ -314,6 +483,9 @@ class Session:
 
     def gap(self) -> float:
         """Duality gap P(v) - D(alpha) — the convergence certificate."""
+        if self.streamed:
+            p, dval = self._streamed_primal_dual()
+            return p - dval
         if self.sparse:
             dval = objectives.dual_value(self.obj, self.alpha, self.v,
                                          self.y, self.lam)

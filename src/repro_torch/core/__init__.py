@@ -1,17 +1,16 @@
 """Core: the paper's contribution — system-aware parallel SDCA.
 
-Exports what the reference's `repro.core` does, except what waits on
-later slices of the port: `ChunkFeed`, `make_streamed_epoch` and
-`run_epoch_streamed` (streaming, ROADMAP A8) and `MeshCollectives`
-(multi-GPU, A11); the port has no `Collectives` protocol apart from
-`SimCollectives`.
+Exports what the reference's `repro.core` does, except
+`MeshCollectives` (multi-GPU, ROADMAP A11); the port has no
+`Collectives` protocol apart from `SimCollectives`.
 """
 from .bucketing import BucketPlan, choose_bucket_size, make_plan
 from .cocoa import SolverConfig, epoch_sim, epoch_sim_sparse
 from .config import (AlgoConfig, DeploymentConfig, EngineConfig,
                      as_engine_config)
-from .engine import (DenseBlock, LocalSolver, SimCollectives, SparseBlock,
-                     make_local_solver, run_epoch, sharded_epoch)
+from .engine import (ChunkFeed, DenseBlock, LocalSolver, SimCollectives,
+                     SparseBlock, make_local_solver, make_streamed_epoch,
+                     run_epoch, run_epoch_streamed, sharded_epoch)
 from .objectives import (HINGE, LOGISTIC, OBJECTIVES, RIDGE, Objective,
                          duality_gap, dual_value, get_objective,
                          primal_value)
@@ -25,8 +24,9 @@ __all__ = [
     "BucketPlan", "choose_bucket_size", "make_plan",
     "SolverConfig", "epoch_sim", "epoch_sim_sparse",
     "AlgoConfig", "DeploymentConfig", "EngineConfig", "as_engine_config",
-    "DenseBlock", "LocalSolver", "SimCollectives", "SparseBlock",
-    "make_local_solver", "run_epoch", "sharded_epoch",
+    "ChunkFeed", "DenseBlock", "LocalSolver", "SimCollectives",
+    "SparseBlock", "make_local_solver", "make_streamed_epoch",
+    "run_epoch", "run_epoch_streamed", "sharded_epoch",
     "HINGE", "LOGISTIC", "OBJECTIVES", "RIDGE", "Objective",
     "duality_gap", "dual_value", "get_objective", "primal_value",
     "PartitionPlan",

@@ -28,12 +28,14 @@ integer-exact against the reference:
 from __future__ import annotations
 
 import dataclasses
+import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Optional, Protocol, Union
 
 import numpy as np
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, same_device
 from . import prng, sdca
 from .config import AlgoConfig, EngineConfig, as_engine_config
 from .objectives import Objective
@@ -636,3 +638,218 @@ def sim_sharded_sparse_epoch(obj: Objective, spec, idx, val, y, a, v,
         obj, spec, _sim_coll(spec), SparseBlock(idx, val), y, a, v, epoch,
         lam=lam, n_total=n_total, workers=spec.workers, device=device)
     return blk.idx, blk.val, y, a, v
+
+
+# ---------------------------------------------------------------------------
+# Out-of-core streaming: ChunkFeed + the streamed chunk loop
+# ---------------------------------------------------------------------------
+
+
+class ChunkFeed(Protocol):
+    """Host-side supplier of worker-shaped example chunks.
+
+    The engine asks for GLOBAL bucket ids laid out (*wshape, nb_chunk)
+    and gets back (data, y) on ``device`` covering those buckets'
+    examples in schedule order:
+
+        dense:   data (*wshape, d, nb_chunk*B) f32
+        sparse:  data = (idx int32, val f32), each (*wshape, nb_chunk*B, nnz)
+        labels:  y (*wshape, nb_chunk*B) f32
+
+    `fetch` is called one chunk ahead from a worker thread (double
+    buffering), so implementations must tolerate concurrent calls.  On
+    a CUDA device that thread's current stream is the loop's side
+    stream: `fetch` issues its copies there and returns; the loop
+    records an event after it and makes the compute stream wait on
+    that event.  Implementations live in `repro_torch.data.cache`
+    (`TileFeed` over the mmap'd bucket-tile cache, `ArrayFeed` over
+    host arrays).
+
+    Contract on sparse rows: no feature id may repeat with a NONZERO
+    value within a row (the CSR invariant the sparse kernel's bitwise
+    guarantee rests on — sanitize with `data.formats.zero_duplicates`
+    when building a custom feed; chunks reach the solver without a
+    host-side check).
+    """
+    n: int          # global example count (padded)
+    d: int
+    bucket: int
+    sparse: bool
+    device: torch.device
+
+    def fetch(self, bids: np.ndarray): ...
+
+
+def make_streamed_step(coll: SimCollectives, solver: LocalSolver,
+                       algo: AlgoConfig, *, dv_scale: float = 1.0):
+    """One streamed chunk: gather alpha at the chunk's columns, run
+    `_apply_chunk` (the SAME body as `run_epoch`'s resident loop), and
+    write alpha back at those columns, in place (`run_epoch_streamed`
+    hands the step the epoch's own copy of alpha; the columns of a
+    chunk are distinct, so the write is deterministic)."""
+
+    def step(data, yc, cols, a, v_c):
+        a_new, v_c = _apply_chunk(coll, solver, algo, data, yc, a[cols],
+                                  v_c, dv_scale=dv_scale)
+        a[cols] = a_new
+        return a, v_c
+
+    return step
+
+
+def run_epoch_streamed(
+    coll: SimCollectives,
+    feed: ChunkFeed,
+    step,                      # from make_streamed_step
+    plan,                      # PartitionPlan (host-evaluated schedule)
+    algo: AlgoConfig,
+    alpha: Tensor,             # (n,) global dual, on the device
+    v: Tensor,                 # (d,) shared vector, on the device
+    epoch: int,
+    journal=None,
+    stats: Optional[dict] = None,   # out: ingest-overlap metrics
+) -> tuple[Tensor, Tensor]:
+    """One epoch where `run_epoch`'s chunked sub-epoch loop consumes
+    host-resident chunks instead of a device-resident block.
+
+    The schedule is the same pure function of (seed, epoch) the
+    simulator uses (`plan.schedule`, evaluated on the host), and each
+    chunk's compute is `_apply_chunk` — so the chunk's solver call gets
+    the bytes the resident loop hands it, and the result is bitwise
+    `sim_epoch_dense`/`sim_epoch_sparse`'s on the same data, while only
+    a `chunks`-th of the examples (two, while the next one is copied)
+    is ever on the device.
+
+    Double buffering: a one-thread executor fetches chunk c+1 while
+    chunk c computes.  On a CUDA device the fetch runs under
+    ``torch.cuda.stream(side)`` (the current stream is per thread), so
+    the feed's host-to-device copies and the chunk's column ids go on a
+    side stream; an event recorded after them is what the compute
+    stream waits on, and every fetched tensor is marked used by the
+    compute stream (`record_stream`), so the caching allocator cannot
+    hand its memory to a later chunk's copy while the step still reads
+    it.  A failure in the fetch re-raises here, from the future.  The
+    loop never synchronizes the device.
+
+    A ``stats`` dict receives the epoch's ingest-overlap metrics:
+    ``epoch_s`` wall time, ``fetch_s`` the prefetch thread's time in
+    `fetch`, ``ingest_wait_s`` the time the chunk loop spent BLOCKED on
+    it (host gather and copy issue not hidden behind compute),
+    ``chunks``, and ``transfer_hidden_frac = 1 - ingest_wait_s /
+    epoch_s``.  Passing one adds a device synchronize at the epoch's
+    end; None keeps the epoch free of any.
+    """
+    if journal is not None:
+        raise NotImplementedError(
+            "journal= (crash-safe streamed epochs) is not ported to "
+            "repro_torch yet (ROADMAP queue A12)")
+    B = feed.bucket
+    per_lane = plan.per_lane
+    if per_lane % algo.chunks:
+        raise ValueError(f"chunks={algo.chunks} must divide per-lane "
+                         f"bucket count {per_lane}")
+    per_chunk = per_lane // algo.chunks
+    sched = np.asarray(plan.schedule(int(epoch)), np.int64)  # (P, K, pl)
+    dev = alpha.device
+    cuda = dev.type == "cuda"
+    barange = torch.arange(B, dtype=torch.int64, device=dev)
+    side = None
+    if cuda:            # the side stream starts after what is enqueued
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+    fetch_s = [0.0]
+
+    def fetch(c):
+        t0 = time.perf_counter()
+        bids = sched[..., c * per_chunk:(c + 1) * per_chunk]
+        ready = None
+        if cuda:
+            with torch.cuda.stream(side):
+                data, yc = feed.fetch(bids)
+                ids = torch.from_numpy(np.ascontiguousarray(
+                    bids)).pin_memory().to(dev, non_blocking=True)
+                cols = (ids[..., None] * B + barange).flatten(-2)
+                ready = torch.cuda.Event()
+                ready.record(side)
+        else:
+            data, yc = feed.fetch(bids)
+            cols = (torch.from_numpy(bids)[..., None] * B
+                    + barange).flatten(-2)
+        fetch_s[0] += time.perf_counter() - t0
+        return cols, data, yc, ready
+
+    v = coll.pod_replicate(v)
+    v_in = v
+    alpha = alpha.clone()          # the caller's alpha survives a failure
+    compute = torch.cuda.current_stream(dev) if cuda else None
+    t_start = time.perf_counter()
+    wait_s = 0.0
+    with ThreadPoolExecutor(max_workers=1) as ex:
+        nxt = ex.submit(fetch, 0)
+        for c in range(algo.chunks):
+            t0 = time.perf_counter()
+            cols, data, yc, ready = nxt.result()
+            wait_s += time.perf_counter() - t0
+            if c + 1 < algo.chunks:
+                nxt = ex.submit(fetch, c + 1)
+            tensors = (*(data if isinstance(data, tuple) else (data,)),
+                       yc, cols)
+            for t in tensors:
+                if not isinstance(t, Tensor) or t.device != dev:
+                    raise ValueError(
+                        f"the feed handed chunk {c} as "
+                        f"{getattr(t, 'device', type(t).__name__)}; the "
+                        f"step runs on {dev}")
+            if ready is not None:
+                compute.wait_event(ready)
+                for t in tensors:
+                    t.record_stream(compute)
+            alpha, v = step(data, yc, cols, alpha, v)
+    v = coll.pod_reduce(v, v_in)
+    if stats is not None:
+        if cuda:
+            torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t_start
+        stats.update(
+            epoch_s=wall, fetch_s=fetch_s[0], ingest_wait_s=wait_s,
+            chunks=algo.chunks,
+            transfer_hidden_frac=(max(0.0, 1.0 - wait_s / wall)
+                                  if wall > 0 else 0.0))
+    return alpha, v
+
+
+def make_streamed_epoch(obj: Objective, spec, plan, feed: ChunkFeed, *,
+                        lam: float, journal=None, device="cuda"):
+    """-> epoch_fn(alpha, v, epoch, *, stats=None) for out-of-core
+    training.
+
+    The streamed twin of `sim_epoch_dense`/`sim_epoch_sparse`: same
+    solver, same sigma', same schedule, but examples arrive chunk by
+    chunk through `feed`, whose tensors must land on ``device`` (default
+    the card; a missing GPU raises).  ``journal`` (crash safety) is
+    ROADMAP A12 and raises.
+    """
+    device = resolve_device(device)
+    if journal is not None:
+        raise NotImplementedError(
+            "journal= (crash-safe streamed epochs) is not ported to "
+            "repro_torch yet (ROADMAP queue A12)")
+    fdev = getattr(feed, "device", None)
+    if fdev is None or not same_device(fdev, device):
+        raise ValueError(f"the feed's tensors land on {fdev}; the epoch "
+                         f"runs on {device}")
+    spec = as_engine_config(spec)
+    coll = _sim_coll(spec)
+    W = plan.pods * plan.lanes
+    solver = make_local_solver(
+        spec.algo.local_solver, obj, lam * feed.n, spec.sigma_prime(W),
+        bucket=feed.bucket, sparse=feed.sparse, device=device)
+    dv_scale = 1.0 / W if spec.algo.aggregation == "averaging" else 1.0
+    step = make_streamed_step(coll, solver, spec.algo, dv_scale=dv_scale)
+
+    def epoch_fn(alpha, v, epoch, *, stats=None):
+        alpha, v = (_as(t, device, torch.float32) for t in (alpha, v))
+        return run_epoch_streamed(coll, feed, step, plan, spec.algo,
+                                  alpha, v, epoch, stats=stats)
+
+    return epoch_fn

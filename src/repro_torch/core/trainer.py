@@ -13,9 +13,6 @@ the run's ``device`` like every entry point of the port, and emits a
     Session(cache, streamed=True) instead of  StreamedGLMTrainer(cache)
     Session("higgs").fit(...)     instead of  fit_dataset("higgs")
     api.LogisticRegression(...)   for the sklearn-shaped front door
-
-Streamed training is ROADMAP A8, so `StreamedGLMTrainer` warns and then
-raises through `Session`'s refusal.
 """
 from __future__ import annotations
 
@@ -123,8 +120,9 @@ class GLMTrainer(_TrainerBase):
 
 
 class StreamedGLMTrainer(_TrainerBase):
-    """Deprecated: use `repro_torch.api.Session(cache, streamed=True)`
-    (ROADMAP A8: raises until streaming is ported)."""
+    """Deprecated: use `repro_torch.api.Session(cache, streamed=True)`.
+    Trains out of core over a `TileCache` (``journal_dir``/``health``
+    are ROADMAP A12 and raise)."""
 
     def __init__(self, cache, *, objective: str | Objective | None = None,
                  lam: float = 1e-3,
@@ -154,17 +152,19 @@ def fit_dataset(name: str, *,
                 return_trainer: bool = False, device="cuda"):
     """Deprecated: use `repro_torch.api.Session(name, ...).fit(...)`.
 
-    Train on a registry dataset end to end.  ``nnz_multiple`` shapes
-    the tile cache (ROADMAP A7) and, as in the reference, the resident
-    path ignores it.  With ``return_trainer=True`` the second element
-    is the underlying `Session`.
+    Train on a registry dataset end to end: name -> (tile cache) -> fit.
+    ``nnz_multiple`` shapes the tile cache of a streamed or cached run
+    and, as in the reference, the resident path ignores it.  With
+    ``return_trainer=True`` the second element is the underlying
+    `Session`.
     """
     from repro_torch.api import Session, warn_deprecated
     warn_deprecated("repro_torch.core.fit_dataset",
                     "repro_torch.api.Session(name, ...).fit(...)")
     session = Session(name, objective=objective, lam=lam, cfg=cfg,
                       n=n, d=d, streamed=streamed, cache_dir=cache_dir,
-                      data_dir=data_dir, bucket=bucket, device=device)
+                      data_dir=data_dir, bucket=bucket,
+                      nnz_multiple=nnz_multiple, device=device)
     res = session.fit(max_epochs=max_epochs, tol=tol,
                       gap_every=gap_every, verbose=verbose)
     return (res, session) if return_trainer else res

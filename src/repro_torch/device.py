@@ -22,3 +22,11 @@ def resolve_device(device="cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def same_device(a, b) -> bool:
+    """Whether two device specs name one device ("cuda" matches the
+    current card's "cuda:0")."""
+    a, b = torch.device(a), torch.device(b)
+    return a.type == b.type and (a.index is None or b.index is None
+                                 or a.index == b.index)

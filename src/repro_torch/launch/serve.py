@@ -1,16 +1,22 @@
-"""Batched serving: LM decode, and GLM batch prediction.
+"""Batched serving: LM decode, and GLM prediction.
 
 LM path (prefill a prompt batch, then decode greedily):
 
     python -m repro_torch.launch.serve --arch smollm-360m [--smoke] \
         [--batch 4] [--prompt-len 32] [--gen 16] [--device cuda]
 
-GLM path: `glm_predict_batch` predicts through a fitted
-`repro_torch.api` estimator (the estimator is the serving unit), dense,
-scipy sparse or padded-CSR input, on the estimator's device.  The
-reference's `glm_predict_streamed` and `serve_glm` read the bucket-tile
-cache, so they wait on ROADMAP A7 (and stay in A13).  Runs on the card
-unless `device="cpu"`; there the kernels' plain versions run.
+GLM path: the `repro_torch.api` estimator is the serving unit.
+`glm_predict_batch` predicts in fixed-size batches (dense, scipy sparse
+or padded-CSR input), `glm_predict_streamed` out of core off the
+bucket-tile cache, and `serve_glm` is the one-command demo (registry
+dataset -> tile cache -> load or fit an estimator -> streamed predict):
+
+    python -m repro_torch.launch.serve --glm higgs [--glm-ckpt DIR] \
+        [--glm-epochs 10] [--glm-batch 8192] [--glm-cache-dir DIR] \
+        [--device cuda]
+
+Runs on the card unless `device="cpu"`; there the kernels' plain
+versions run.
 """
 from __future__ import annotations
 
@@ -50,6 +56,83 @@ def glm_predict_batch(est, X, *, batch: int = 8192,
               else X[s:s + batch])
         outs.append(np.asarray(fn(sl)))
     return np.concatenate(outs) if outs else np.empty((0,))
+
+
+def glm_predict_streamed(est, cache, *, gbuckets: int = 512,
+                         return_margins: bool = False,
+                         verify_tiles: bool = False) -> np.ndarray:
+    """Out-of-core inference: stream bucket tiles off the mmap'd cache,
+    never holding more than `gbuckets` tiles in host memory, through
+    the estimator's own margin path on its device.
+
+    Returns predictions (or raw margins) for the TRUE examples — the
+    cache's inert padding rows are trimmed via ``meta.n_examples``.
+    With ``gbuckets * bucket`` = `estimators.PREDICT_ROWS` (8,192) each
+    group is one prediction block, so the margins equal
+    `glm_predict_batch`'s on the same rows elementwise.
+    ``verify_tiles`` crc-checks each tile group against the cache's
+    per-tile sidecar before serving from it (raising
+    `data.cache.TileCorruptionError` rather than emitting predictions
+    from corrupt bytes); default off.
+    """
+    est._check_fitted()
+    m = cache.meta
+    out = []
+    for start in range(0, m.n_buckets, gbuckets):
+        bids = np.arange(start, min(start + gbuckets, m.n_buckets))
+        if verify_tiles:
+            cache.verify_tiles(bids)
+        data, _y = cache.gather_buckets(bids)
+        # sklearn's row layout, as `predict` takes it
+        rows = tuple(data) if m.kind == "sparse" else data.T
+        out.append(est.decision_function(rows))
+    mg = np.concatenate(out)[:m.n_examples]
+    if return_margins or not getattr(est, "_classifier", False):
+        return mg
+    return np.asarray(est.classes_)[(mg > 0).astype(int)]
+
+
+def serve_glm(dataset: str, *, ckpt=None, epochs: int = 10,
+              batch: int = 8192, cache_dir=None, bucket: int = 8,
+              device="cuda", verbose: bool = True):
+    """Registry dataset -> (load or fit) estimator -> streamed predict.
+
+    Materializes the bucket-tile cache, restores an `est.save`
+    checkpoint of either package when given (else runs a quick fit on
+    `device`), then serves the whole dataset out of core and reports
+    throughput and training-set accuracy.  Returns (predictions,
+    accuracy).
+    """
+    from repro_torch.api import LogisticRegression, load as load_estimator
+    from repro_torch.api.session import _pad_multiple
+    from repro_torch.data import registry
+
+    if ckpt is not None:
+        est = load_estimator(ckpt, device=device)
+    else:
+        est = LogisticRegression(max_epochs=epochs, bucket=bucket,
+                                 lanes=4, partition="dynamic",
+                                 device=device)
+    # pad to the estimator's training topology so est.fit(cache) divides
+    # for any raw-file n (the cache path cannot re-pad)
+    cache = registry.materialize(
+        dataset, cache_dir, bucket=est.bucket,
+        pad_multiple=_pad_multiple(est.engine_config(), est.bucket))
+    if ckpt is None:
+        est.fit(cache)
+    t0 = time.perf_counter()
+    preds = glm_predict_streamed(est, cache,
+                                 gbuckets=max(batch // bucket, 1))
+    dt = time.perf_counter() - t0
+    y = np.ascontiguousarray(
+        cache.arrays["y"]).reshape(-1)[:cache.meta.n_examples]
+    labels = np.asarray(est.classes_)[(y > 0).astype(int)]
+    acc = float(np.mean(preds == labels))
+    if verbose:
+        print(f"glm-serve {dataset}: {preds.shape[0]} rows in {dt:.3f}s "
+              f"({preds.shape[0] / max(dt, 1e-9):,.0f} rows/s), "
+              f"train-acc {acc:.4f}")
+    return preds, acc
 
 
 def _sync(dev: torch.device) -> None:
@@ -145,7 +228,22 @@ def main() -> None:
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--glm", default=None, metavar="DATASET",
+                    help="serve GLM predictions for a registry dataset "
+                         "(streamed from the tile cache) instead of the "
+                         "LM decode path")
+    ap.add_argument("--glm-ckpt", default=None,
+                    help="estimator checkpoint dir (from est.save); "
+                         "without it a quick fit runs first")
+    ap.add_argument("--glm-epochs", type=int, default=10)
+    ap.add_argument("--glm-batch", type=int, default=8192)
+    ap.add_argument("--glm-cache-dir", default=None)
     args = ap.parse_args()
+    if args.glm:
+        serve_glm(args.glm, ckpt=args.glm_ckpt, epochs=args.glm_epochs,
+                  batch=args.glm_batch, cache_dir=args.glm_cache_dir,
+                  device=args.device)
+        return
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     ids = serve(cfg, batch=args.batch, prompt_len=args.prompt_len,
                 gen=args.gen, device=args.device)

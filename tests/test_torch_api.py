@@ -109,7 +109,6 @@ def test_fit_without_gpu_raises_naming_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(streamed=True), "A8"), (dict(cache_dir="c"), "A7"),
     (dict(health=True), "A12"), (dict(journal_dir="j"), "A12")])
 def test_unported_knobs_raise_with_their_queue_item(kw, item):
     X, y = _dense(n=64, d=8)
@@ -476,12 +475,18 @@ def test_glm_trainer_equals_session_bitwise():
     assert tr.gap() == ses.gap()
 
 
-def test_streamed_trainer_shim_warns_then_refuses():
-    from repro_torch.core import StreamedGLMTrainer
+def test_streamed_trainer_shim_warns_then_trains(tmp_path):
+    from repro_torch.core import EngineConfig, StreamedGLMTrainer
+    from repro_torch.data import registry
+    cache = registry.materialize("synthetic-dense", tmp_path, bucket=8,
+                                 n=256, d=16)
     reset_deprecation_registry()
     with pytest.warns(ReproDeprecationWarning, match="StreamedGLMTrainer"):
-        with pytest.raises(NotImplementedError, match="A8"):
-            StreamedGLMTrainer(object(), **CPU)
+        tr = StreamedGLMTrainer(cache, cfg=EngineConfig.make(bucket=8),
+                                **CPU)
+    res = tr.fit(max_epochs=2, tol=0.0)
+    assert tr.streamed and res.epochs == 2
+    assert float(torch.abs(tr.v).max()) > 0
 
 
 def test_solver_config_use_kernel_and_session_accepts_it():

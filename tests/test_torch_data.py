@@ -73,9 +73,3 @@ def test_registry_matches(name, monkeypatch):
     for attr in ("y", "X", "idx", "val"):
         if getattr(j, attr) is not None:
             _same(getattr(j, attr), getattr(t, attr))
-
-
-def test_registry_raw_file_not_ported(tmp_path):
-    (tmp_path / "higgs.csv").write_text("1,0.5\n")
-    with pytest.raises(NotImplementedError, match="A7"):
-        treg.get_dataset("higgs", data_dir=tmp_path)

@@ -83,6 +83,23 @@ def test_session_partitions_match_reference(partition):
     _assert_close(js, ts)
 
 
+@pytest.mark.parametrize("chunks", [2, 4])
+@pytest.mark.parametrize("kind", ["dense", "sparse"])
+def test_session_chunks_match_reference(kind, chunks):
+    """The hierarchical, deterministic epoch that the streamed path runs,
+    resident, at 2 and 4 chunks."""
+    data, kw = _data(kind)
+    cfg = dict(CFG, partition="hierarchical", chunks=chunks,
+               deterministic=True)
+    js = JSession(data, objective="logistic", cfg=JConfig.make(**cfg), **kw)
+    ts = Session(data, objective="logistic", cfg=EngineConfig.make(**cfg),
+                 device="cpu", **kw)
+    for _ in range(3):
+        js.epoch()
+        ts.epoch()
+        _assert_close(js, ts)
+
+
 @pytest.mark.parametrize("kind", ["dense", "sparse"])
 def test_carry_over_from_reference(kind):
     """JAX epochs 1-2 -> convert -> epoch 3 on both packages."""
@@ -159,8 +176,7 @@ def test_kernel_solver_on_cpu_raises():
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"streamed": True}, "A8"), ({"mesh": object()}, "A11"),
-    ({"cache_dir": "x"}, "A7"), ({"health": True}, "A12"),
+    ({"mesh": object()}, "A11"), ({"health": True}, "A12"),
     ({"journal_dir": "x"}, "A12"), ({"faults": object()}, "A12")])
 def test_unported_options_name_their_queue_item(kw, item):
     data, dkw = _data("dense")
