@@ -9,10 +9,12 @@ One front door for every data source the port takes:
 
 Everything older (`core.GLMTrainer`, `core.StreamedGLMTrainer`,
 `core.fit_dataset`, `core.cocoa.epoch_sim*`) is a deprecation shim over
-these (`ReproDeprecationWarning`).  The reference's `HealthMonitor` and
-`HealthPolicy` (its resilience runtime) come with ROADMAP A12 and are
-not exported yet.
+these (`ReproDeprecationWarning`).  `HealthMonitor` and `HealthPolicy`
+(the numerical-health guard of `repro_torch.resilience`) are exported
+here, as the reference exports them.
 """
+from repro_torch.resilience import HealthMonitor, HealthPolicy
+
 from .callbacks import (BenchmarkRecorder, Callback, CheckpointHook,
                         EarlyStopping, GapLogger)
 from .deprecation import ReproDeprecationWarning, warn_deprecated
@@ -22,7 +24,7 @@ from .session import Session, margins
 
 __all__ = [
     "BenchmarkRecorder", "Callback", "CheckpointHook", "EarlyStopping",
-    "GapLogger",
+    "GapLogger", "HealthMonitor", "HealthPolicy",
     "ReproDeprecationWarning", "warn_deprecated",
     "GLMEstimator", "LinearSVC", "LogisticRegression", "NotFittedError",
     "Ridge", "load",

@@ -87,9 +87,10 @@ class GLMEstimator:
     keyword-only and stored under its own name, which is exactly what
     `get_params`/`set_params` (and therefore `sklearn.base.clone`)
     require.  ``local_solver`` takes the port's names
-    (``"auto"``/``"torch"``/``"kernel"``).  ``health`` and
-    ``journal_dir`` are kept for the reference's signature; `fit` raises
-    for them (ROADMAP A12).
+    (``"auto"``/``"torch"``/``"kernel"``).  ``health`` (a `HealthPolicy`,
+    `HealthMonitor` or True) and ``journal_dir`` go to the `Session`:
+    the numerical-health guard, and crash-safe epochs that a new fit on
+    the same journal resumes.
     """
 
     _objective = "logistic"

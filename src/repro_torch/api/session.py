@@ -20,9 +20,14 @@ Resident sources live on the session's device; streamed ones
 (``streamed=True``, or a `ChunkFeed`) keep the examples on the host and
 copy a chunk at a time (`repro_torch.core.engine.run_epoch_streamed`),
 bitwise equal to resident training on the same data and configuration.
-Meshes and the resilience runtime of the reference's Session are later
-slices of the port and raise `NotImplementedError` naming their ROADMAP
-queue item.
+
+The resilience runtime (`repro_torch.resilience`) is opt-in:
+``journal_dir=`` makes epochs crash-safe (a new Session on the same
+journal resumes at the last committed epoch, and a streamed epoch at
+its last journaled chunk), ``health=`` puts a `HealthMonitor` first in
+`fit`'s callbacks, and ``faults=`` (default: ``$REPRO_FAULTS``) injects
+a seeded `FaultInjector`.  Meshes are a later slice of the port and
+raise `NotImplementedError` naming their ROADMAP queue item.
 
 Examples are PADDED (x=0, y=+1 — inert, a zero row never moves v) up
 to the multiple the chosen topology needs; ``n_examples`` records the
@@ -45,6 +50,8 @@ from repro_torch.core.partition import PartitionPlan
 from repro_torch.core.trainer import FitResult
 from repro_torch.data.cache import ArrayFeed, pad_examples
 from repro_torch.device import resolve_device, same_device
+from repro_torch.resilience import (EpochJournal, FaultInjector,
+                                    HealthMonitor, HealthPolicy)
 
 Tensor = torch.Tensor
 
@@ -95,11 +102,10 @@ class Session:
                  n: Optional[int] = None, data_dir=None, pad: bool = True,
                  device="cuda", streamed: bool = False, mesh=None,
                  cache_dir=None, nnz_multiple: Optional[int] = None,
-                 health=None, journal_dir=None, faults=None):
+                 health=None, journal_dir=None, journal_every: int = 1,
+                 faults=None):
         if mesh is not None:
             _unported("mesh= (multi-GPU training)", "A11")
-        if health is not None or journal_dir is not None or faults is not None:
-            _unported("health=/journal_dir=/faults= (resilience)", "A12")
         self.device = resolve_device(device)
         self.spec = as_engine_config(cfg) if cfg is not None \
             else EngineConfig()
@@ -108,6 +114,18 @@ class Session:
         self.feed = None
         self.solver_plan = None      # the planner is ROADMAP queue A10
         self.history: list[dict[str, float]] = []
+        # the resilience runtime, all opt-in: `health` is a
+        # HealthPolicy/HealthMonitor (or True for the defaults) that
+        # fit() puts first among its callbacks; `journal_dir` makes
+        # epochs crash-safe; `faults` is a FaultInjector (by default
+        # from $REPRO_FAULTS)
+        self._health = health
+        self._damp = 1.0
+        self._faults = (faults if faults is not None
+                        else FaultInjector.from_env())
+        self._journal = (EpochJournal(journal_dir, every=journal_every,
+                                      injector=self._faults)
+                         if journal_dir is not None else None)
 
         # `Session((X, y))` / `Session(((idx, val), y))` sugar — only
         # when the second element is labels-shaped (1-D)
@@ -133,6 +151,13 @@ class Session:
                                 "Session((X, y)) or Session(X, y)")
             self._init_from_arrays(data, y, objective=objective, lam=lam,
                                    d=d, bucket=bucket, pad=pad)
+        if self._journal is not None:
+            # restart: continue from the last committed epoch (a
+            # mid-epoch record is consumed by the streamed loop itself)
+            got = self._journal.load_epoch(self.alpha, self.v,
+                                           device=self.device)
+            if got is not None:
+                self.alpha, self.v, self.epochs_done = got
 
     # -- construction: one per data source ----------------------------------
 
@@ -306,9 +331,7 @@ class Session:
             lanes=dep.lanes, mode=algo.partition, seed=algo.seed,
             redeal_frac=algo.redeal_frac)
         self._init_state()
-        self._epoch_fn = engine.make_streamed_epoch(
-            self.obj, self.spec, self.plan, feed, lam=self.lam,
-            device=self.device)
+        self._rebuild_epoch_fn()
 
     def _init_from_registry(self, name, *, objective, lam, bucket, n, d,
                             data_dir, streamed=False, cache_dir=None,
@@ -346,6 +369,23 @@ class Session:
         self.v = torch.zeros(self.d, dtype=torch.float32, device=self.device)
         self.epochs_done = 0
 
+    def _rebuild_epoch_fn(self) -> None:
+        """(Re)build the streamed epoch from the current spec and damp:
+        at construction, and by the health remedies (solver reroute,
+        damping) that change how an epoch runs.  The resident epochs
+        read both at every call."""
+        if self.feed is not None:
+            self._epoch_fn = engine.make_streamed_epoch(
+                self.obj, self.spec, self.plan, self.feed, lam=self.lam,
+                journal=self._journal, damp=self._damp, device=self.device)
+
+    def _switch_local_solver(self, kind: str) -> None:
+        """Reroute the local solver (the health guard's kernel -> torch
+        fallback, taken on a CPU session only) and rebuild the epoch."""
+        algo = dataclasses.replace(self.spec.algo, local_solver=kind)
+        self.spec = dataclasses.replace(self.spec, algo=algo)
+        self._rebuild_epoch_fn()
+
     # -- epoch-level control ------------------------------------------------
 
     def _run_epoch(self, alpha: Tensor, v: Tensor, epoch: int,
@@ -355,10 +395,12 @@ class Session:
         if self.sparse:
             return engine.sim_epoch_sparse(
                 self.obj, self.idx, self.val, self.y, alpha, v, self.lam,
-                self.plan, self.bplan, self.spec, epoch, device=self.device)
+                self.plan, self.bplan, self.spec, epoch,
+                dv_scale_mul=self._damp, device=self.device)
         return engine.sim_epoch_dense(
             self.obj, self.X, self.y, alpha, v, self.lam, self.plan,
-            self.bplan, self.spec, epoch, device=self.device)
+            self.bplan, self.spec, epoch, dv_scale_mul=self._damp,
+            device=self.device)
 
     def epoch(self, *, stats: Optional[dict] = None) -> dict[str, float]:
         """Run exactly one epoch; returns {'epoch', 'rel_change', 't'}.
@@ -369,10 +411,23 @@ class Session:
         metrics (`engine.run_epoch_streamed`; a device synchronize at
         the epoch's end)."""
         t0 = time.perf_counter()
+        if self._faults is not None:
+            # the fault probes: an epoch-boundary kill, a kernel failure
+            # on any solver but "torch", and NaN poisoning after the
+            # epoch (the resident twin of nan-chunk)
+            self._faults.maybe_kill(self.epochs_done)
+            if self.spec.algo.local_solver != "torch":
+                self._faults.maybe_kernel_fail(self.epochs_done)
         v_prev = self.v
         self.alpha, self.v = self._run_epoch(self.alpha, self.v,
                                              self.epochs_done, stats=stats)
+        if self._faults is not None \
+                and self._faults.nan_epoch(self.epochs_done):
+            self.v = self.v * float("nan")
         self.epochs_done += 1
+        if self._journal is not None:
+            self._journal.commit_epoch(self.alpha, self.v,
+                                       self.epochs_done)
         rel = float(torch.linalg.norm(self.v - v_prev)
                     / torch.clamp_min(torch.linalg.norm(self.v), 1e-30))
         rec = {"epoch": self.epochs_done, "rel_change": rel,
@@ -383,13 +438,25 @@ class Session:
     def fit(self, *, until: Optional[int] = None,
             max_epochs: Optional[int] = None, tol: float = 1e-3,
             gap_every: int = 0, callbacks: Sequence = (),
-            verbose: bool = False, diverge_above: float = 1e8) -> FitResult:
+            verbose: bool = False, diverge_above: float = 1e8,
+            health=None) -> FitResult:
         """Train to `until` (absolute epoch) or `max_epochs` more epochs.
 
         Stops early when the relative model change drops below `tol`
         (the paper's stopping rule), when the iterate diverges, or when
         any callback's `on_epoch_end(metrics)` returns truthy.
         Re-entrant: a second `fit` continues from the current state.
+
+        ``health`` (a `HealthPolicy`, a `HealthMonitor`, or True for the
+        defaults; by default the Session's ``health=``) installs the
+        numerical-health guard first in line: instead of the built-in
+        stop on divergence, an unhealthy epoch, or one that raises an
+        `Exception`, rolls back to the last healthy snapshot and is
+        retried or remediated per the policy
+        (`repro_torch.resilience.health`).  Only the monitor absorbs an
+        epoch's exception; without one it propagates.  A kernel's
+        failure off the CPU propagates under a monitor too, once its
+        retries are spent: the monitor refuses the fallback there.
         """
         if until is None:
             until = self.epochs_done + (100 if max_epochs is None
@@ -397,6 +464,19 @@ class Session:
         elif max_epochs is not None:
             raise TypeError("pass either until= or max_epochs=, not both")
         cbs = list(callbacks)
+        monitor = next((cb for cb in cbs
+                        if isinstance(cb, HealthMonitor)), None)
+        health = health if health is not None else self._health
+        if monitor is None and health is not None:
+            if isinstance(health, HealthMonitor):
+                monitor = health
+            elif isinstance(health, HealthPolicy):
+                monitor = HealthMonitor(health)
+            else:                      # health=True: the default policy
+                monitor = HealthMonitor()
+            # first in line: it must see (and repair) the state before
+            # other callbacks consume the epoch record
+            cbs.insert(0, monitor)
         for cb in cbs:
             bind = getattr(cb, "bind", None)
             if bind is not None:
@@ -407,14 +487,28 @@ class Session:
         t0 = time.perf_counter()
         converged = diverged = False
         while self.epochs_done < until:
-            rec = self.epoch()
+            try:
+                rec = self.epoch()
+            except Exception as err:
+                # only a health monitor may absorb an epoch's failure: it
+                # rolls back and remediates, and re-raises when the
+                # policy is spent (SimulatedCrash is a BaseException, so
+                # it never lands here)
+                if monitor is None:
+                    raise
+                monitor.on_epoch_error(err)
+                continue
             rec["t"] = time.perf_counter() - t0
+            want_gap = needs_gap or (
+                gap_every and self.epochs_done % gap_every == 0)
             vmax = float(torch.max(torch.abs(self.v)))
             if not np.isfinite(vmax) or vmax > diverge_above:
-                diverged = True
-                history.append(rec)
-                break
-            if needs_gap or (gap_every and self.epochs_done % gap_every == 0):
+                if monitor is None:
+                    diverged = True
+                    history.append(rec)
+                    break
+                want_gap = False       # no gap pass over non-finite state
+            if want_gap:
                 rec["gap"] = self.gap()
             history.append(rec)
             if verbose:
@@ -430,6 +524,8 @@ class Session:
                 break
             if stop:
                 break
+        if monitor is not None and monitor.gave_up:
+            diverged = True
         if not history:
             history = [{"epoch": self.epochs_done, "rel_change": 0.0,
                         "t": 0.0, "gap": self.gap()}]

@@ -735,21 +735,28 @@ def run_epoch_streamed(
     ``epoch_s`` wall time, ``fetch_s`` the prefetch thread's time in
     `fetch`, ``ingest_wait_s`` the time the chunk loop spent BLOCKED on
     it (host gather and copy issue not hidden behind compute),
-    ``chunks``, and ``transfer_hidden_frac = 1 - ingest_wait_s /
-    epoch_s``.  Passing one adds a device synchronize at the epoch's
-    end; None keeps the epoch free of any.
+    ``chunks`` (those this call ran), and ``transfer_hidden_frac = 1 -
+    ingest_wait_s / epoch_s``.  Passing one adds a device synchronize
+    at the epoch's end; None keeps the epoch free of any.
+
+    With a ``journal`` (`repro_torch.resilience.EpochJournal`) the loop
+    is crash-safe: state is snapshotted at chunk boundaries, and a
+    re-entered epoch resumes at the journaled chunk cursor with the
+    journaled alpha and (P, d) v and v_in, as they are; the schedule is
+    pure in (seed, epoch), so the resumed epoch replays exactly the
+    chunks not yet applied and ends bitwise an uninterrupted one.  Each
+    journal write reads the state back to the host (a device
+    synchronize).  Without one the loop adds two ``is not None`` tests
+    per chunk and nothing else.
     """
-    if journal is not None:
-        raise NotImplementedError(
-            "journal= (crash-safe streamed epochs) is not ported to "
-            "repro_torch yet (ROADMAP queue A12)")
     B = feed.bucket
     per_lane = plan.per_lane
     if per_lane % algo.chunks:
         raise ValueError(f"chunks={algo.chunks} must divide per-lane "
                          f"bucket count {per_lane}")
     per_chunk = per_lane // algo.chunks
-    sched = np.asarray(plan.schedule(int(epoch)), np.int64)  # (P, K, pl)
+    ep = int(epoch)
+    sched = np.asarray(plan.schedule(ep), np.int64)  # (P, K, pl)
     dev = alpha.device
     cuda = dev.type == "cuda"
     barange = torch.arange(B, dtype=torch.int64, device=dev)
@@ -781,12 +788,21 @@ def run_epoch_streamed(
     v = coll.pod_replicate(v)
     v_in = v
     alpha = alpha.clone()          # the caller's alpha survives a failure
+    start = 0
+    if journal is not None:
+        got = journal.load_inflight(ep, alpha, v, v_in, device=dev)
+        if got is not None:
+            start, alpha, v, v_in = got
     compute = torch.cuda.current_stream(dev) if cuda else None
     t_start = time.perf_counter()
     wait_s = 0.0
+    # a BaseException (an injected kill) raised below leaves through the
+    # executor's exit, which waits for the fetch in flight
     with ThreadPoolExecutor(max_workers=1) as ex:
-        nxt = ex.submit(fetch, 0)
-        for c in range(algo.chunks):
+        nxt = ex.submit(fetch, start)
+        for c in range(start, algo.chunks):
+            if journal is not None:
+                journal.pre_chunk(ep, c)
             t0 = time.perf_counter()
             cols, data, yc, ready = nxt.result()
             wait_s += time.perf_counter() - t0
@@ -805,6 +821,8 @@ def run_epoch_streamed(
                 for t in tensors:
                     t.record_stream(compute)
             alpha, v = step(data, yc, cols, alpha, v)
+            if journal is not None:
+                journal.post_chunk(ep, c, alpha, v, v_in, algo.chunks)
     v = coll.pod_reduce(v, v_in)
     if stats is not None:
         if cuda:
@@ -812,28 +830,27 @@ def run_epoch_streamed(
         wall = time.perf_counter() - t_start
         stats.update(
             epoch_s=wall, fetch_s=fetch_s[0], ingest_wait_s=wait_s,
-            chunks=algo.chunks,
+            chunks=algo.chunks - start,
             transfer_hidden_frac=(max(0.0, 1.0 - wait_s / wall)
                                   if wall > 0 else 0.0))
     return alpha, v
 
 
 def make_streamed_epoch(obj: Objective, spec, plan, feed: ChunkFeed, *,
-                        lam: float, journal=None, device="cuda"):
+                        lam: float, journal=None, damp: float = 1.0,
+                        device="cuda"):
     """-> epoch_fn(alpha, v, epoch, *, stats=None) for out-of-core
     training.
 
     The streamed twin of `sim_epoch_dense`/`sim_epoch_sparse`: same
     solver, same sigma', same schedule, but examples arrive chunk by
     chunk through `feed`, whose tensors must land on ``device`` (default
-    the card; a missing GPU raises).  ``journal`` (crash safety) is
-    ROADMAP A12 and raises.
+    the card; a missing GPU raises).  ``journal`` threads an
+    `EpochJournal` into the chunk loop (crash safety); ``damp`` is the
+    health guard's multiplier on dv_scale (`sim_epoch_*`'s
+    ``dv_scale_mul``).
     """
     device = resolve_device(device)
-    if journal is not None:
-        raise NotImplementedError(
-            "journal= (crash-safe streamed epochs) is not ported to "
-            "repro_torch yet (ROADMAP queue A12)")
     fdev = getattr(feed, "device", None)
     if fdev is None or not same_device(fdev, device):
         raise ValueError(f"the feed's tensors land on {fdev}; the epoch "
@@ -844,12 +861,14 @@ def make_streamed_epoch(obj: Objective, spec, plan, feed: ChunkFeed, *,
     solver = make_local_solver(
         spec.algo.local_solver, obj, lam * feed.n, spec.sigma_prime(W),
         bucket=feed.bucket, sparse=feed.sparse, device=device)
-    dv_scale = 1.0 / W if spec.algo.aggregation == "averaging" else 1.0
+    dv_scale = (1.0 / W if spec.algo.aggregation == "averaging"
+                else 1.0) * damp
     step = make_streamed_step(coll, solver, spec.algo, dv_scale=dv_scale)
 
     def epoch_fn(alpha, v, epoch, *, stats=None):
         alpha, v = (_as(t, device, torch.float32) for t in (alpha, v))
         return run_epoch_streamed(coll, feed, step, plan, spec.algo,
-                                  alpha, v, epoch, stats=stats)
+                                  alpha, v, epoch, journal=journal,
+                                  stats=stats)
 
     return epoch_fn

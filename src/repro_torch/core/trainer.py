@@ -121,8 +121,8 @@ class GLMTrainer(_TrainerBase):
 
 class StreamedGLMTrainer(_TrainerBase):
     """Deprecated: use `repro_torch.api.Session(cache, streamed=True)`.
-    Trains out of core over a `TileCache` (``journal_dir``/``health``
-    are ROADMAP A12 and raise)."""
+    Trains out of core over a `TileCache`; ``journal_dir`` and ``health``
+    go to the `Session` (crash-safe epochs, the health guard)."""
 
     def __init__(self, cache, *, objective: str | Objective | None = None,
                  lam: float = 1e-3,

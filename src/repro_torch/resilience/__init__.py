@@ -1,0 +1,37 @@
+"""Fault-tolerant training runtime, the reference's `repro.resilience`.
+
+Four pillars, each opt-in and free when unused:
+
+  * `EpochJournal`        crash-safe streamed epochs: chunk cursor +
+                          state journal; a killed run resumes at the
+                          last committed chunk boundary, bitwise.
+  * `ResilientChunkFeed`  feed-layer retry/timeout/backoff; transient
+                          I/O is retried, `TileCorruptionError` is
+                          quarantined and rebuilt from source.
+  * `HealthPolicy` /
+    `HealthMonitor`       numerical-health guard: non-finite or
+                          diverging state rolls back to the last
+                          healthy snapshot, then retry / damp /
+                          kernel -> torch fallback (a CPU session's
+                          only: on the card it is refused and raises).
+  * `faultinject`         seeded deterministic fault schedules
+                          (``$REPRO_FAULTS``, ``$REPRO_SEED``) proving
+                          every recovery path, with a JSON event log
+                          (``$REPRO_FAULT_LOG``).
+
+The mesh half of the reference's runtime (`ResilientChunkFeed`'s
+rebind of a mesh feed) comes with the multi-GPU path.
+"""
+from .faultinject import (FaultInjectedIOError, FaultInjector, FaultyFeed,
+                          KernelBuildError, SimulatedCrash, log_event,
+                          parse_schedule)
+from .feed import ResilientChunkFeed
+from .health import HealthMonitor, HealthPolicy
+from .journal import EpochJournal
+
+__all__ = [
+    "EpochJournal", "ResilientChunkFeed", "HealthMonitor", "HealthPolicy",
+    "FaultInjector", "FaultyFeed", "SimulatedCrash",
+    "FaultInjectedIOError", "KernelBuildError", "parse_schedule",
+    "log_event",
+]

@@ -30,7 +30,7 @@ from repro.api import load as jload                           # noqa: E402
 from repro.data import synthetic as jsynth                    # noqa: E402
 from repro_torch.api import (BenchmarkRecorder,               # noqa: E402
                              CheckpointHook, EarlyStopping,
-                             GapLogger, LinearSVC,
+                             GapLogger, HealthPolicy, LinearSVC,
                              LogisticRegression, NotFittedError,
                              ReproDeprecationWarning, Ridge, Session)
 from repro_torch.api import load as tload                     # noqa: E402
@@ -108,12 +108,24 @@ def test_fit_without_gpu_raises_naming_cpu(monkeypatch):
         LogisticRegression.load("unused")
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(health=True), "A12"), (dict(journal_dir="j"), "A12")])
-def test_unported_knobs_raise_with_their_queue_item(kw, item):
+@pytest.mark.parametrize("knob", ["health", "journal_dir"])
+def test_resilience_knobs_reach_the_session(knob, tmp_path):
+    """``health=`` and ``journal_dir=`` are estimator parameters that
+    reach the `Session`; a fault-free fit through them is bitwise a
+    plain one."""
     X, y = _dense(n=64, d=8)
-    with pytest.raises(NotImplementedError, match=item):
-        LogisticRegression(max_epochs=1, **kw, **CPU).fit(X.T, y)
+    value = {"health": HealthPolicy(retries=2),
+             "journal_dir": tmp_path / "j"}[knob]
+    kw = dict(max_epochs=2, bucket=8, tol=0.0, **CPU)
+    plain = LogisticRegression(**kw).fit(X.T, y)
+    est = LogisticRegression(**kw, **{knob: value}).fit(X.T, y)
+    np.testing.assert_array_equal(est.coef_, plain.coef_)
+    assert est.get_params()[knob] is value
+    s = est.session_
+    if knob == "health":
+        assert s._health is value and s._journal is None
+    else:
+        assert s._journal.root == value and (value / "epoch").is_dir()
 
 
 def test_session_x_is_contiguous_from_sklearn_layout():

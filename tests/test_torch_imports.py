@@ -1,8 +1,8 @@
 """The port imports neither JAX nor the reference package.
 
 Parses every module of `src/repro_torch/` (the `launch/` package
-included), `chip_smoke.py`, `tools/torch_breakdown.py` and
-`tools/same_timer.py` with `ast`
+included), `chip_smoke.py`, `tools/torch_breakdown.py`,
+`tools/same_timer.py` and `tools/streamed_ab.py` with `ast`
 and fails on any import of `jax` or `repro` (other than `repro_torch`),
 at any depth: inside functions too.
 """
@@ -16,7 +16,7 @@ pytest.importorskip("torch")
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tools" / "torch_breakdown.py",
-    ROOT / "tools" / "same_timer.py"]
+    ROOT / "tools" / "same_timer.py", ROOT / "tools" / "streamed_ab.py"]
 
 
 def _forbidden(mod: str) -> bool:
@@ -63,7 +63,11 @@ def test_new_modules_are_checked():
             "src/repro_torch/api/estimators.py",
             "src/repro_torch/api/callbacks.py",
             "src/repro_torch/api/deprecation.py",
-            "src/repro_torch/core/cocoa.py"} <= names
+            "src/repro_torch/core/cocoa.py",
+            "src/repro_torch/resilience/faultinject.py",
+            "src/repro_torch/resilience/journal.py",
+            "src/repro_torch/resilience/feed.py",
+            "src/repro_torch/resilience/health.py"} <= names
 
 
 def test_every_kernel_source_is_registered():

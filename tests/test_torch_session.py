@@ -9,6 +9,7 @@ per-step sums are ordered differently (matmul and reduction order) on
 the two sides.
 """
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -22,6 +23,7 @@ from repro_torch import convert                               # noqa: E402
 from repro_torch.api import Session                           # noqa: E402
 from repro_torch.core.config import EngineConfig              # noqa: E402
 from repro_torch.core import engine                           # noqa: E402
+from repro_torch.resilience import FaultInjector              # noqa: E402
 
 OBJS = ["ridge", "hinge", "logistic"]
 CFG = dict(pods=2, lanes=2, bucket=8)
@@ -175,13 +177,33 @@ def test_kernel_solver_on_cpu_raises():
     assert engine.resolve_auto_solver("cuda") == "kernel"
 
 
-@pytest.mark.parametrize("kw,item", [
-    ({"mesh": object()}, "A11"), ({"health": True}, "A12"),
-    ({"journal_dir": "x"}, "A12"), ({"faults": object()}, "A12")])
+@pytest.mark.parametrize("kw,item", [({"mesh": object()}, "A11")])
 def test_unported_options_name_their_queue_item(kw, item):
     data, dkw = _data("dense")
     with pytest.raises(NotImplementedError, match=item):
         Session(data, device="cpu", **dkw, **kw)
+
+
+@pytest.mark.parametrize("knob", ["health", "journal_dir", "faults"])
+def test_resilience_options_are_taken(knob, tmp_path):
+    """``health=``, ``journal_dir=`` and ``faults=`` (here an empty
+    schedule) build the resilience runtime, and a fault-free fit through
+    it is bitwise a plain one."""
+    data, dkw = _data("dense")
+    value = {"health": True, "journal_dir": tmp_path / "j",
+             "faults": FaultInjector("")}[knob]
+    kw = dict(cfg=EngineConfig.make(**CFG), device="cpu", **dkw)
+    plain = Session(data, **kw)
+    s = Session(data, **kw, **{knob: value})
+    plain.fit(until=2, tol=0)
+    res = s.fit(until=2, tol=0)
+    assert torch.equal(s.alpha, plain.alpha) and torch.equal(s.v, plain.v)
+    assert not res.diverged and s.epochs_done == 2
+    if knob == "journal_dir":
+        assert json.loads((value / "epoch" / "meta.json").read_text()) == \
+            {"epochs_done": 2}
+    else:
+        assert (s._health if knob == "health" else s._faults) is value
 
 
 @pytest.mark.parametrize("bad", [-1, 64])

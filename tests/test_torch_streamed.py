@@ -18,6 +18,8 @@ Contracts and their tolerances:
     and to the reference's labels wherever |margin| > 1e-4.
 Every cache goes under `tmp_path` ($REPRO_CACHE_DIR is set per test).
 """
+import json
+
 import numpy as np
 import pytest
 
@@ -420,15 +422,24 @@ def test_feed_must_hand_tensors_on_the_step_device():
                                    **CPU)
 
 
-def test_journal_is_a12():
+def test_journal_threads_into_the_streamed_loop(tmp_path):
+    """`make_streamed_epoch(journal=)` gives the journal-free epoch's
+    bits and leaves an inflight record at chunk 1 of 2; a later call of
+    the same epoch resumes there and runs one chunk."""
+    from repro_torch.resilience import EpochJournal
     s = Session(_dense_feed(), cfg=_cfg(2), **CPU)
-    with pytest.raises(NotImplementedError, match="A12"):
-        engine.make_streamed_epoch(get_objective("ridge"), _cfg(2), s.plan,
-                                   s.feed, lam=1e-3, journal=object(),
-                                   **CPU)
-    with pytest.raises(NotImplementedError, match="A12"):
-        engine.run_epoch_streamed(None, s.feed, None, s.plan, s.spec.algo,
-                                  s.alpha, s.v, 0, journal=object())
+    args = (get_objective("ridge"), _cfg(2), s.plan, s.feed)
+    plain = engine.make_streamed_epoch(*args, lam=1e-3, **CPU)
+    journaled = engine.make_streamed_epoch(
+        *args, lam=1e-3, journal=EpochJournal(tmp_path), **CPU)
+    want = plain(s.alpha, s.v, 0)
+    for chunks in (2, 1):
+        stats = {}
+        got = journaled(s.alpha, s.v, 0, stats=stats)
+        assert stats["chunks"] == chunks
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        meta = (tmp_path / "inflight" / "meta.json").read_text()
+        assert json.loads(meta) == {"epoch": 0, "chunk": 1}
 
 
 def test_streamed_entry_points_need_a_gpu(tmp_path, monkeypatch):
