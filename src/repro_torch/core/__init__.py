@@ -2,15 +2,20 @@
 
 Exports what the reference's `repro.core` does, except
 `MeshCollectives` (multi-GPU, ROADMAP A11); the port has no
-`Collectives` protocol apart from `SimCollectives`.
+`Collectives` protocol apart from `SimCollectives` and its one-device
+mesh mirror `StackedMeshCollectives`.  `sim_sharded_dense_epoch` and
+`sim_sharded_sparse_epoch` are the sim sides of the sim-equals-mesh
+contract (`launch.glm.make_dense_epoch`, `make_sparse_epoch`).
 """
 from .bucketing import BucketPlan, choose_bucket_size, make_plan
 from .cocoa import SolverConfig, epoch_sim, epoch_sim_sparse
 from .config import (AlgoConfig, DeploymentConfig, EngineConfig,
                      as_engine_config)
 from .engine import (ChunkFeed, DenseBlock, LocalSolver, SimCollectives,
-                     SparseBlock, make_local_solver, make_streamed_epoch,
-                     run_epoch, run_epoch_streamed, sharded_epoch)
+                     SparseBlock, StackedMeshCollectives, make_local_solver,
+                     make_streamed_epoch, q_psum, run_epoch,
+                     run_epoch_streamed, sharded_epoch,
+                     sim_sharded_dense_epoch, sim_sharded_sparse_epoch)
 from .objectives import (HINGE, LOGISTIC, OBJECTIVES, RIDGE, Objective,
                          duality_gap, dual_value, get_objective,
                          primal_value)
@@ -25,8 +30,9 @@ __all__ = [
     "SolverConfig", "epoch_sim", "epoch_sim_sparse",
     "AlgoConfig", "DeploymentConfig", "EngineConfig", "as_engine_config",
     "ChunkFeed", "DenseBlock", "LocalSolver", "SimCollectives",
-    "SparseBlock", "make_local_solver", "make_streamed_epoch",
-    "run_epoch", "run_epoch_streamed", "sharded_epoch",
+    "SparseBlock", "StackedMeshCollectives", "make_local_solver",
+    "make_streamed_epoch", "q_psum", "run_epoch", "run_epoch_streamed",
+    "sharded_epoch", "sim_sharded_dense_epoch", "sim_sharded_sparse_epoch",
     "HINGE", "LOGISTIC", "OBJECTIVES", "RIDGE", "Objective",
     "duality_gap", "dual_value", "get_objective", "primal_value",
     "PartitionPlan",

@@ -142,6 +142,27 @@ def sparse_sharded_kernel_solver(obj: Objective, lam_n: float, sig: float,
     return solve
 
 
+def dense_kernel_solver(obj: Objective, lam_n: float, sig: float,
+                        bucket: int) -> LocalSolver:
+    """The dense CUDA kernel (`kops.sdca_bucket_subepoch`): every worker
+    in one launch.  Under tensor parallelism a worker's tile is its
+    lanes' d/M slices stacked in lane order, which is its whole (d, B)
+    tile, so the same launch serves: the kernel's reduction over d sums
+    the lanes' Gram and margin partials (in its own order: within a
+    tolerance of the "torch" route's lane-ordered sum).  A shape the
+    kernel cannot take raises with its misfit."""
+    from repro_torch.kernels import ops as kops
+
+    def solve(X, y, a, v):
+        why = kops.dense_kernel_misfit(X.shape[-2], X.shape[-1], bucket)
+        if why is not None:
+            _raise_misfit(why, "dense")
+        return kops.sdca_bucket_subepoch(obj, X, y, a, v, lam_n, sig,
+                                         bucket=bucket,
+                                         source="resident arrays")
+    return solve
+
+
 def make_local_solver(kind: str, obj: Objective, lam_n: float, sig: float,
                       *, bucket: int = 1, sparse: bool = False,
                       model_lanes: Optional[int] = None,
@@ -154,7 +175,14 @@ def make_local_solver(kind: str, obj: Objective, lam_n: float, sig: float,
     version.  `model_lanes` on the sparse path selects the
     feature-sharded layout: each of that many lanes owns a slice of v,
     and the solver returns dv (W, M, d), each lane's delta on its slice
-    ("kernel": the sharded kernel pair; "torch": the masked scan).
+    ("kernel": the sharded kernel pair; "torch": the masked scan).  On
+    the dense path it selects tensor parallelism: each worker's d rows
+    are that many lanes' d/M slices, stacked in lane order ("torch":
+    `sdca.dense_tp_bucket_pass`, the lanes' Gram and margin partials
+    summed per bucket in lane order; "kernel": the dense kernel on the
+    worker's whole tile, whose reduction over d sums the lanes'
+    partials in its own order).  The reference has no dense TP kernel
+    and falls back to its plain scan; the port launches the kernel.
     """
     from repro_torch.kernels import ops as kops
     device = torch.device(device)
@@ -168,10 +196,6 @@ def make_local_solver(kind: str, obj: Objective, lam_n: float, sig: float,
             f"local_solver='kernel' launches a CUDA kernel and needs CUDA "
             f"tensors, got device {device}; use local_solver='torch' or "
             f"'auto' on the CPU")
-    if model_lanes is not None and not sparse:
-        raise NotImplementedError(
-            "dense feature sharding (the model-axis psum inside the "
-            "sub-epoch) is not ported yet")
     lam_t = torch.tensor(lam_n, dtype=torch.float32, device=device)
     sig_t = torch.tensor(sig, dtype=torch.float32, device=device)
 
@@ -218,17 +242,9 @@ def make_local_solver(kind: str, obj: Objective, lam_n: float, sig: float,
     if kind == "torch":
         def solve(X, y, a, v):
             return sdca.dense_local_subepoch(obj, X, y, a, v, lam_t, sig_t,
-                                             bucket)
+                                             bucket, model_lanes=model_lanes)
         return solve
-
-    def solve(X, y, a, v):
-        why = kops.dense_kernel_misfit(X.shape[-2], X.shape[-1], bucket)
-        if why is not None:
-            _raise_misfit(why, "dense")
-        return kops.sdca_bucket_subepoch(obj, X, y, a, v, lam_n, sig,
-                                         bucket=bucket,
-                                         source="resident arrays")
-    return solve
+    return dense_kernel_solver(obj, lam_n, sig, bucket)
 
 
 # ---------------------------------------------------------------------------
@@ -238,9 +254,33 @@ def make_local_solver(kind: str, obj: Objective, lam_n: float, sig: float,
 
 def _quantize_roundtrip(x: Tensor, axis: int) -> Tensor:
     """Model the int8 wire: per-worker quantize/dequantize along `axis`."""
-    from repro_torch.optim.compression import compress, dequantize
-    qz, _ = compress(x, axis=axis)
-    return dequantize(qz)
+    from repro_torch.optim.compression import dequantize, quantize
+    return dequantize(quantize(x, axis=axis))
+
+
+def q_psum(x: Tensor) -> Tensor:
+    """The reference's int8 two-phase reduction (`q_psum`: a quantized
+    reduce-scatter, then a quantized all-gather) over a stacked lane
+    axis: x (*g, L, n), each group's L lanes' vectors in lane order ->
+    (*g, n), what every lane of the group holds after it.
+
+    Each lane's vector is padded to a multiple of L and quantized with
+    one scale; in phase 1 lane j sums shard j of every lane's payload,
+    q * scale, in lane order; in phase 2 each reduced shard is quantized
+    with its own scale, and the dequantized shards are concatenated and
+    cropped.  A single lane passes through unquantized, as there."""
+    from repro_torch.optim.compression import dequantize, quantize
+    L, n = x.shape[-2:]
+    if L <= 1:
+        return x[..., 0, :]
+    pad = (-n) % L
+    if pad:
+        x = torch.nn.functional.pad(x, (0, pad))
+    qz = quantize(x, axis=-1)                             # scale (*g, L, 1)
+    shards = qz.q.reshape(x.shape[:-1] + (L, -1))         # (*g, lane, shard, m)
+    part = _ordered_sum(shards.float() * qz.scale[..., None], -3)
+    out = dequantize(quantize(part, axis=-1))
+    return out.reshape(out.shape[:-2] + (-1,))[..., :n]
 
 
 def _ordered_sum(x: Tensor, dim: int) -> Tensor:
@@ -346,6 +386,10 @@ class SimCollectives:
             return v.expand((self.pods,) + tuple(v.shape))
         return v
 
+    def _wire_slices(self) -> int:
+        """How many slices of v each carry their own int8 scale."""
+        return 1
+
     def worker_view(self, v: Tensor) -> Tensor:
         # (P, d) pod replicas -> (P, K, d) per-worker replicas
         return v[:, None, :].expand(self.pods, self.lanes, v.shape[-1])
@@ -361,7 +405,9 @@ class SimCollectives:
             return v_pods[0]
         deltas = v_pods - v_in
         if self.compress_pod:
-            deltas = _quantize_roundtrip(deltas, axis=deltas.ndim - 1)
+            S = self._wire_slices()
+            deltas = _quantize_roundtrip(
+                deltas.reshape(self.pods, S, -1), axis=2).reshape(deltas.shape)
         return v_in[0] + _ordered_sum(deltas, 0)
 
 
@@ -372,32 +418,58 @@ class StackedMeshCollectives(SimCollectives):
     The one-device mirror of the reference's `MeshCollectives` with
     ordered collectives (its `deterministic=True`): the same worker keys
     (per pod and example lane), the all-to-all re-deal over `data` only,
-    the lane sum as ordered adds over `data` then `model`, and the pod
-    reduce (int8 on the wire when `compress_pod`).  `lanes` is the
-    example-lane count: data x model when the model axis carries
-    examples, data when it carries v slices (`model_slices`, the
-    feature-sharded sparse layout, where a solver returns each lane's
-    slice of dv as an extra axis: (P, data, model, d)).
+    the lane sum as ordered adds over `data` then `model` (with
+    `compress`, the int8 two-phase `q_psum` on each axis in that order,
+    on the reference's groups), and the pod reduce (int8 on the wire
+    when `compress_pod`).  `lanes` is the example-lane count: data x
+    model when the model axis carries examples, data when it carries
+    features.  `model_role` names what the model axis carries:
+    "examples", more example lanes; "slices", feature-sharded sparse
+    data, where a solver returns each lane's slice of dv as an extra
+    axis, (P, data, model, d); or "tp", dense tensor parallelism, where
+    each worker's d rows are the model lanes' d/M slices in lane order,
+    `data` is the only sync axis, and every int8 scale covers one lane's
+    slice, as the reference's shard-local `compress` calls do.
     """
     model: int = 1
-    model_slices: bool = False
+    model_role: str = "examples"
+
+    def __post_init__(self):
+        if self.model_role not in ("examples", "slices", "tp"):
+            raise ValueError(f"unknown model_role {self.model_role!r}")
 
     @property
     def data(self) -> int:
-        return self.lanes if self.model_slices else self.lanes // self.model
+        if self.model_role == "examples":
+            return self.lanes // self.model
+        return self.lanes
 
     def _redeal_axes(self) -> tuple[int, int]:
-        return self.data, (1 if self.model_slices else self.model)
+        return self.data, (self.model if self.model_role == "examples"
+                           else 1)
+
+    def _wire_slices(self) -> int:
+        return self.model if self.model_role == "tp" else 1
 
     def lane_sum(self, dv: Tensor, compress: bool = False) -> Tensor:
-        """(P, data*model, d) or, with model slices, (P, data, model, d)
-        worker deltas -> (P, d): ordered sums over data, then model."""
-        if compress:
-            raise NotImplementedError(
-                "compress_sync (the int8 two-phase q_psum over the mesh "
-                "axes) is not ported to the stacked mesh yet")
-        dv = dv.reshape(dv.shape[0], self.data, self.model, dv.shape[-1])
-        return _ordered_sum(_ordered_sum(dv, 1), 1)
+        """(P, data*model, d), with model slices (P, data, model, d), or
+        under tp (P, data, d) worker deltas -> (P, d): ordered sums over
+        data, then model."""
+        P, d = dv.shape[0], dv.shape[-1]
+        if self.model_role == "tp":
+            if not compress:
+                return _ordered_sum(dv, 1)
+            # each model lane reduces its own slice over data
+            x = dv.reshape(P, self.data, self.model, -1).transpose(1, 2)
+            return q_psum(x).reshape(P, d)
+        dv = dv.reshape(P, self.data, self.model, d)
+        if not compress:
+            return _ordered_sum(_ordered_sum(dv, 1), 1)
+        # data pass on each (pod, model lane), then model pass on each
+        # (pod, data lane), whose lanes all hold the data pass's result
+        if self.data > 1:
+            dv = q_psum(dv.transpose(1, 2))[:, None]          # (P, 1, M, d)
+        return q_psum(dv[:, 0]) if self.model > 1 else dv[:, 0, 0]
 
 
 # ---------------------------------------------------------------------------
@@ -507,7 +579,9 @@ def sharded_epoch(obj: Objective, spec: EngineConfig, coll: SimCollectives,
     visit order is a fresh per-worker shuffle.  `model_lanes` on a
     sparse block selects the feature-sharded solver (each model lane
     owns a slice of v; `coll` must then be a `StackedMeshCollectives`
-    with `model_slices`, whose lane sum reassembles the slices)."""
+    with model_role "slices", whose lane sum reassembles the slices),
+    and on a dense block tensor parallelism (`coll` then a
+    `StackedMeshCollectives` with model_role "tp")."""
     algo = spec.algo
     solver = make_local_solver(
         algo.local_solver, obj, lam * n_total, spec.sigma_prime(workers),
@@ -622,6 +696,22 @@ def sim_epoch_sparse(obj: Objective, idx, val, y, alpha, v, lam: float,
     alpha = alpha.clone()
     alpha[ex.reshape(-1)] = a_new.reshape(-1)
     return alpha, v_new
+
+
+def sim_sharded_dense_epoch(obj: Objective, spec, X, y, a, v, epoch: int,
+                            *, lam: float, n_total: int, device="cuda"):
+    """Distributed-layout dense epoch on stacked sim workers (replicated
+    v): X (P, K, d, n_local), y/a (P, K, n_local), v (d,).  The sim side
+    of the sim-equals-mesh contract: with a deterministic stacked mesh
+    whose example lanes mirror K (model 1), `launch.glm.make_dense_epoch`
+    gives the same bits.  Returns the re-dealt (X, y), and (a, v)."""
+    device = resolve_device(device)
+    spec = as_engine_config(spec)
+    X, y, a, v = (_as(t, device, torch.float32) for t in (X, y, a, v))
+    blk, y, a, v = sharded_epoch(
+        obj, spec, _sim_coll(spec), DenseBlock(X), y, a, v, epoch,
+        lam=lam, n_total=n_total, workers=spec.workers, device=device)
+    return blk.X, y, a, v
 
 
 def sim_sharded_sparse_epoch(obj: Objective, spec, idx, val, y, a, v,

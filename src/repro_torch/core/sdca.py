@@ -24,6 +24,7 @@ run a CUDA division by a Python scalar as a reciprocal multiply).
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -71,19 +72,57 @@ def dense_bucket_pass(obj: Objective, xb: Tensor, yb: Tensor, ab: Tensor,
     return a_new, v
 
 
+def dense_tp_bucket_pass(obj: Objective, xb: Tensor, yb: Tensor,
+                         ab: Tensor, v0: Tensor, lam_n: Tensor,
+                         sigma_p: Tensor, model_lanes: int
+                         ) -> tuple[Tensor, Tensor]:
+    """`dense_bucket_pass` with the features split over `model_lanes`
+    lanes (dense tensor parallelism): each lane holds d/M contiguous
+    rows of every tile and of v.  Per bucket each lane forms its partial
+    m0 = X_m^T v_m and G = X_m^T X_m, the packed [m0 | G] partials are
+    summed over the lanes in lane order (the reference's model-axis psum
+    of `packed`), every lane runs the same recursion, and each lane
+    updates its own rows of v.  d must be a multiple of M."""
+    *w, nb, d, B = xb.shape
+    M = int(model_lanes)
+    if d % M:
+        raise ValueError(f"dense tensor parallelism splits d={d} over "
+                         f"{M} model lanes; d must be a multiple of it")
+    v = v0.reshape(*w, M, d // M)
+    a_new = torch.empty_like(ab)
+    for b in range(nb):
+        Xt = xb[..., b, :, :].reshape(*w, M, d // M, B)
+        XtT = Xt.transpose(-1, -2)                       # (*w, M, B, d/M)
+        packed = torch.cat([XtT @ v[..., None], XtT @ Xt], dim=-1)
+        parts = packed.unbind(-3)
+        total = parts[0]
+        for p in parts[1:]:
+            total = total + p                            # (*w, B, 1 + B)
+        deltas = bucket_solve(obj, total[..., 1:], total[..., 0],
+                              ab[..., b, :], yb[..., b, :], lam_n, sigma_p)
+        v = v + (sigma_p / lam_n) * (Xt @ deltas[..., None, :, None])[..., 0]
+        a_new[..., b, :] = ab[..., b, :] + deltas
+    return a_new, v.reshape(*w, d)
+
+
 def dense_local_subepoch(obj: Objective, Xl: Tensor, yl: Tensor,
                          al: Tensor, v0: Tensor, lam_n: Tensor,
-                         sigma_p: Tensor, bucket: int
+                         sigma_p: Tensor, bucket: int,
+                         model_lanes: Optional[int] = None
                          ) -> tuple[Tensor, Tensor]:
     """One worker's pass over its buckets: Xl (*w, d, n_local) columns
     in visiting order, yl/al (*w, n_local), v0 (*w, d).
-    Returns (al_new, dv) with dv the UNSCALED global delta (CoCoA+)."""
+    Returns (al_new, dv) with dv the UNSCALED global delta (CoCoA+).
+    `model_lanes` splits the features over that many lanes, whose
+    Gram and margin partials are summed per bucket
+    (`dense_tp_bucket_pass`; the reference's `model_axis`)."""
     *w, d, n_local = Xl.shape
     nb = n_local // bucket
     xb = Xl.reshape(*w, d, nb, bucket).movedim(-2, -3)     # (*w, nb, d, B)
-    a_new, v1 = dense_bucket_pass(
-        obj, xb, yl.reshape(*w, nb, bucket), al.reshape(*w, nb, bucket),
-        v0, lam_n, sigma_p)
+    args = (obj, xb, yl.reshape(*w, nb, bucket),
+            al.reshape(*w, nb, bucket), v0, lam_n, sigma_p)
+    a_new, v1 = (dense_bucket_pass(*args) if model_lanes is None
+                 else dense_tp_bucket_pass(*args, model_lanes))
     # CoCoA+: the local replica evolves with the sigma'-scaled updates,
     # the aggregated global delta is the UNSCALED (1/lam_n) A_k @ dalpha_k
     return a_new.reshape(*w, n_local), (v1 - v0) / sigma_p

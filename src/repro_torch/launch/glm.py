@@ -10,16 +10,25 @@ tensor operations of `core.engine.StackedMeshCollectives`:
     crosses pods, once per epoch (int8 on the wire with compress_pod);
   * dynamic partition within a pod: every epoch each lane shuffles its
     buckets and re-deals them over 'data' (the all-to-all);
-  * sparse feature sharding over 'model' for wide data: each model lane
-    owns a contiguous d/M slice of v, the working sets are exchanged
-    once per bucket (the feature-sharded CUDA kernel pair), and 'model'
-    joins the sync axes, so the ordered dv sum reassembles the slices;
-    without feature_shard the model axis is more example lanes.
+  * feature sharding over 'model' for wide data.  Dense (tensor
+    parallelism): each model lane holds d/M rows of X and of v, and the
+    lanes' per-bucket Gram and margin partials are summed, so one
+    worker is a (pod, data) pair; on one device its tile is its lanes'
+    slices stacked, and the dense CUDA kernel sums them in its
+    reduction over d.  Sparse: each model lane owns a contiguous d/M
+    slice of v, the working sets are exchanged once per bucket (the
+    feature-sharded CUDA kernel pair), and 'model' joins the sync axes,
+    so the ordered dv sum reassembles the slices.  Without
+    feature_shard the model axis is more example lanes;
+  * v replicas sync over 'data' (and 'model' when it carries examples
+    or sparse slices) once per chunk, in f32 or, with compress_sync, by
+    the int8 two-phase `engine.q_psum`.
 
 Workers = pods x data lanes (x model lanes when features are not
-sharded); sigma' = #workers (CoCoA+ adding).  `make_dense_epoch` (dense
-tensor parallelism), `scale_for_dataset`, `estimator_epoch` and the
-streamed mesh path are not ported yet.
+sharded); sigma' = #workers (CoCoA+ adding).  `estimator_epoch` puts a
+fitted estimator's epoch on a mesh.  `scale_for_dataset` (with the
+planner, ROADMAP A10), `glm_input_specs` and the streamed mesh path
+(A11) are not ported yet.
 """
 from __future__ import annotations
 
@@ -134,15 +143,55 @@ def _worker_count(mesh: StackedMesh, scale: GLMScale) -> int:
 def _collectives(mesh: StackedMesh, scale: GLMScale
                  ) -> engine.StackedMeshCollectives:
     _, _, _, tp = _axes(mesh, scale)
-    if tp:
-        raise NotImplementedError(
-            "dense feature sharding (tensor parallelism over 'model') is "
-            "not ported yet")
-    pods = mesh.shape["pod"]
+    pods, model = mesh.shape["pod"], mesh.shape["model"]
+    if tp and scale.d % model:
+        raise ValueError(
+            f"{scale.name}: dense tensor parallelism splits d={scale.d} "
+            f"over model={model} lanes; d must be a multiple of it (the "
+            f"reference's P('model') layout of X and v)")
+    role = ("tp" if tp else "slices" if scale.feature_shard
+            else "examples")
     return engine.StackedMeshCollectives(
         pods=pods, lanes=_worker_count(mesh, scale) // pods,
-        compress_pod=scale.compress_pod, model=mesh.shape["model"],
-        model_slices=scale.feature_shard)
+        compress_pod=scale.compress_pod, model=model, model_role=role)
+
+
+def make_dense_epoch(scale: GLMScale, mesh: StackedMesh,
+                     obj: Objective = LOGISTIC):
+    """-> epoch fn over the global arrays: (X, y, a, v, epoch) -> (X, y,
+    a, v), as the reference's shard_map program takes and returns them.
+
+    X (d, n), y/a (n,), v (d,); columns are dealt to the example shards
+    in (pod, data[, model]) order, and the returned X holds the re-dealt
+    columns.  Arrays are moved to the mesh's device.  With
+    feature_shard the model lanes split the features (tensor
+    parallelism; d must be a multiple of the model axis): "torch" sums
+    the lanes' partials per bucket in lane order, "kernel" (and "auto"
+    on the card) launches the dense kernel on each worker's whole tile.
+    """
+    W = _worker_count(mesh, scale)
+    spec = scale.engine_config(mesh)
+    coll = _collectives(mesh, scale)
+    model_lanes = mesh.shape["model"] if coll.model_role == "tp" else None
+    dev = mesh.device
+
+    def epoch_fn(X, y, a, v, epoch):
+        X, y, a, v = (torch.as_tensor(t, dtype=torch.float32, device=dev)
+                      for t in (X, y, a, v))
+        d, n = X.shape
+        P, K = coll.pods, coll.lanes
+        if n % (P * K):
+            raise ValueError(f"n={n} columns do not split over {P * K} "
+                             f"example shards")
+        blk = engine.DenseBlock(X.reshape(d, P, K, -1).permute(1, 2, 0, 3))
+        blk, y, a, v = engine.sharded_epoch(
+            obj, spec, coll, blk, y.reshape(P, K, -1), a.reshape(P, K, -1),
+            v, int(epoch), lam=scale.lam, n_total=scale.n, workers=W,
+            model_lanes=model_lanes, device=dev)
+        return (blk.X.permute(2, 0, 1, 3).reshape(d, n), y.reshape(n),
+                a.reshape(n), v)
+
+    return epoch_fn
 
 
 def make_sparse_epoch(scale: GLMScale, mesh: StackedMesh,
@@ -183,3 +232,63 @@ def make_sparse_epoch(scale: GLMScale, mesh: StackedMesh,
                 y.reshape(n), a.reshape(n), v)
 
     return epoch_fn
+
+
+def scale_for_estimator(est, **overrides) -> GLMScale:
+    """A FITTED `repro_torch.api` estimator (or a bare `Session`) ->
+    `GLMScale`, from its own solver state: the data's dimensions from
+    its session, the algorithm's knobs from its `EngineConfig`, so the
+    mesh program runs the epoch the estimator ran."""
+    ses = getattr(est, "session_", est)
+    if not hasattr(ses, "spec") or not hasattr(ses, "n"):
+        raise ValueError(
+            "estimator_epoch needs a fitted estimator (or a Session): "
+            "the mesh program is sized from its data and config")
+    algo, dep = ses.spec.algo, ses.spec.deployment
+    kind = "sparse" if ses.sparse else "dense"
+    kw = dict(name=f"glm-{type(est).__name__.lower()}", kind=kind,
+              n=ses.n, d=ses.d, bucket=ses.bplan.bucket,
+              chunks=algo.chunks, lam=ses.lam,
+              compress_pod=dep.compress_pod,
+              compress_sync=algo.compress_sync,
+              redeal_frac=algo.redeal_frac,
+              local_solver=algo.local_solver,
+              deterministic=dep.deterministic,
+              # the mesh has two physical partition modes; every sim
+              # re-dealing scheme maps onto the all-to-all re-deal
+              partition=("static" if algo.partition == "static"
+                         else "alltoall"),
+              aggregation=algo.aggregation, seed=algo.seed)
+    if kind == "sparse":
+        if ses.cache is not None:
+            kw["nnz"] = ses.cache.meta.nnz
+        elif hasattr(ses, "idx"):
+            kw["nnz"] = int(ses.idx.shape[1])
+        elif "nnz" not in overrides:
+            raise ValueError("sparse feed-backed session: pass nnz=...")
+    else:
+        kw["feature_shard"] = dep.feature_shard
+    kw.update(overrides)
+    return GLMScale(**kw)
+
+
+def estimator_epoch(est, mesh: StackedMesh, **overrides):
+    """Put a fitted `repro_torch.api` estimator's epoch on a mesh.
+
+    Returns ``(epoch_fn, scale)``: `epoch_fn` is `make_dense_epoch`'s or
+    `make_sparse_epoch`'s program for `scale`, the `GLMScale` derived by
+    `scale_for_estimator`.  The estimator's knobs (bucket, chunks,
+    aggregation, seed, compression, determinism) carry over; its
+    partition maps onto the mesh's modes ("static" stays, every
+    re-dealing scheme becomes the all-to-all re-deal).  With
+    `deterministic=True` and a static or alltoall estimator, the program
+    on (pod P, data K, model 1) is bitwise the stacked sim's
+    (`engine.sim_sharded_dense_epoch` / `sim_sharded_sparse_epoch`).
+    """
+    from repro_torch.core.objectives import get_objective
+    scale = scale_for_estimator(est, **overrides)
+    objective = getattr(est, "_objective", None)
+    obj = get_objective(objective) if objective else getattr(
+        getattr(est, "session_", est), "obj", LOGISTIC)
+    make = make_sparse_epoch if scale.kind == "sparse" else make_dense_epoch
+    return make(scale, mesh, obj=obj), scale

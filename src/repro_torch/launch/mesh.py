@@ -10,8 +10,9 @@ the paper's hierarchy:
 `make_host_mesh` here describes such a mesh with every shard stacked on
 ONE device, as the reference's tests do when they force host devices:
 the collectives become ordered tensor operations
-(`core.engine.StackedMeshCollectives`).  Meshes over several GPUs
-(NCCL) are not ported yet.
+(`core.engine.StackedMeshCollectives`), and `launch.glm` runs the dense
+and sparse epoch programs on it in every role of the model axis.
+Meshes over several GPUs (NCCL, ROADMAP A11) are not ported yet.
 """
 from __future__ import annotations
 

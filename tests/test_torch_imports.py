@@ -59,6 +59,7 @@ def test_new_modules_are_checked():
             "src/repro_torch/models/lm.py",
             "src/repro_torch/kernels/flash_attention.py",
             "src/repro_torch/kernels/rglru.py",
+            "src/repro_torch/kernels/ref.py",
             "src/repro_torch/checkpoint/manager.py",
             "src/repro_torch/api/estimators.py",
             "src/repro_torch/api/callbacks.py",

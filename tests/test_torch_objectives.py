@@ -5,6 +5,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax                                               # noqa: E402
 import jax.numpy as jnp                                  # noqa: E402
 
 from repro.core import objectives as jobj                # noqa: E402
@@ -89,10 +90,14 @@ def test_get_objective_unknown():
 
 @pytest.mark.parametrize("axis", [None, 1])
 def test_compress_matches_reference(axis):
-    # the same IEEE ops (max, divide, round-half-even, clip): exact
+    # the reference's compress as its programs run it, compiled: the
+    # scale a multiply by f32(1/127), the residual one fused
+    # multiply-add; the same IEEE ops (max, multiply, divide,
+    # round-half-even, clip): exact
     rng = np.random.default_rng(4)
     x = rng.normal(size=(3, 257)).astype(np.float32)
-    jq, jerr = jcomp.compress(jnp.asarray(x), axis=axis)
+    jq, jerr = jax.jit(lambda t: jcomp.compress(t, axis=axis))(
+        jnp.asarray(x))
     tq, terr = tcomp.compress(torch.as_tensor(x), axis=axis)
     assert np.array_equal(np.asarray(jq.q), tq.q.numpy())
     np.testing.assert_array_equal(np.asarray(jq.scale), tq.scale.numpy())
