@@ -32,6 +32,11 @@ raise `NotImplementedError` naming their ROADMAP queue item.
 Examples are PADDED (x=0, y=+1 — inert, a zero row never moves v) up
 to the multiple the chosen topology needs; ``n_examples`` records the
 true count.
+
+With ``local_solver="auto"`` resident and streamed arrays go through
+the planner (`repro_torch.core.planner`, ``$REPRO_PLAN``), which
+records its `SolverPlan` in ``solver_plan`` and, in search or probe
+mode with the bucket left open, picks the bucket and chunks.
 """
 from __future__ import annotations
 
@@ -42,7 +47,7 @@ from typing import Any, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core import engine, objectives
+from repro_torch.core import engine, objectives, planner
 from repro_torch.core.bucketing import BucketPlan, make_plan
 from repro_torch.core.config import EngineConfig, as_engine_config
 from repro_torch.core.objectives import Objective, get_objective
@@ -112,7 +117,7 @@ class Session:
         self.streamed = streamed
         self.cache = None
         self.feed = None
-        self.solver_plan = None      # the planner is ROADMAP queue A10
+        self.solver_plan = None      # set when "auto" routes via planner
         self.history: list[dict[str, float]] = []
         # the resilience runtime, all opt-in: `health` is a
         # HealthPolicy/HealthMonitor (or True for the defaults) that
@@ -187,6 +192,31 @@ class Session:
         algo = self.spec.algo
         force = bucket if bucket is not None else (algo.bucket or None)
         B = force if force else 1
+        # local_solver="auto" routes through the planner (core.planner).
+        # Under $REPRO_PLAN=on the geometry stays the static one (the
+        # plan only records the route); search|probe pick the bucket
+        # and chunks when the caller left them open (no bucket kwarg,
+        # algo.bucket <= 1), before n is padded to their multiple.
+        self.solver_plan = None
+        mode = planner.plan_mode() if algo.local_solver == "auto" else "off"
+        if mode != "off" and (not sparse or d is not None):
+            open_geom = (mode in ("search", "probe") and bucket is None
+                         and (algo.bucket or 1) == 1)
+            sig = planner.WorkloadSignature(
+                n=int(y.shape[0]),
+                d=int(d) if sparse else int(np.shape(data)[0]),
+                nnz=int(np.shape(data[0])[1]) if sparse else 0,
+                sparse=sparse)
+            self.solver_plan = planner.resolve_plan(
+                sig, planner.Topology.detect(self.spec, device=self.device),
+                bucket=None if open_geom else B,
+                chunks=None if open_geom else algo.chunks)
+            if open_geom:
+                force = B = self.solver_plan.bucket
+                if self.solver_plan.chunks != algo.chunks:
+                    algo = dataclasses.replace(
+                        algo, chunks=self.solver_plan.chunks)
+                    self.spec = dataclasses.replace(self.spec, algo=algo)
         if sparse:
             idx = np.asarray(data[0], np.int32)
             val = np.asarray(data[1], np.float32)

@@ -126,13 +126,14 @@ def sparse_sharded_kernel_solver(obj: Objective, lam_n: float, sig: float,
     has support only on each lane's slice; the duals are lane 0's copy
     (every lane computes the same bits), as the mesh reads them.  A
     shape the kernels cannot take raises with its misfit."""
+    from repro_torch.core import planner
     from repro_torch.kernels import ops as kops
 
     def solve(data, y, a, v):
         idx, val = data
-        why = kops.sparse_kernel_misfit(idx.shape[-2], idx.shape[-1],
-                                        v.shape[-1], bucket,
-                                        model_lanes=model_lanes)
+        _, why = planner.route_sparse(idx.shape[-2], idx.shape[-1],
+                                      v.shape[-1], bucket,
+                                      model_lanes=model_lanes)
         if why is not None:
             _raise_misfit(why, "feature-sharded sparse")
         a_lanes, dv = kops.sdca_sparse_sharded_subepoch(
@@ -151,10 +152,11 @@ def dense_kernel_solver(obj: Objective, lam_n: float, sig: float,
     the lanes' Gram and margin partials (in its own order: within a
     tolerance of the "torch" route's lane-ordered sum).  A shape the
     kernel cannot take raises with its misfit."""
+    from repro_torch.core import planner
     from repro_torch.kernels import ops as kops
 
     def solve(X, y, a, v):
-        why = kops.dense_kernel_misfit(X.shape[-2], X.shape[-1], bucket)
+        why = planner.route_dense(X.shape[-2], X.shape[-1], bucket)
         if why is not None:
             _raise_misfit(why, "dense")
         return kops.sdca_bucket_subepoch(obj, X, y, a, v, lam_n, sig,
@@ -183,7 +185,12 @@ def make_local_solver(kind: str, obj: Objective, lam_n: float, sig: float,
     worker's whole tile, whose reduction over d sums the lanes'
     partials in its own order).  The reference has no dense TP kernel
     and falls back to its plain scan; the port launches the kernel.
+    The misfit checks are `core.planner.route_sparse`/`route_dense`,
+    the kernels' own predicates, which ``$REPRO_PLAN`` never changes:
+    the planner repairs an open geometry before anything launches, and
+    a fixed geometry that misfits raises here.
     """
+    from repro_torch.core import planner
     from repro_torch.kernels import ops as kops
     device = torch.device(device)
     if kind == "auto":
@@ -230,8 +237,8 @@ def make_local_solver(kind: str, obj: Objective, lam_n: float, sig: float,
 
         def solve(data, y, a, v):
             idx, val = data
-            why = kops.sparse_kernel_misfit(idx.shape[-2], idx.shape[-1],
-                                            v.shape[-1], bucket)
+            _, why = planner.route_sparse(idx.shape[-2], idx.shape[-1],
+                                          v.shape[-1], bucket)
             if why is not None:
                 _raise_misfit(why, "sparse")
             return kops.sdca_sparse_bucket_subepoch(

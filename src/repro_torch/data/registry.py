@@ -183,8 +183,9 @@ def cache_root(cache_dir=None) -> pathlib.Path:
     """Resolve the cache directory: arg > $REPRO_CACHE_DIR > ~/.cache.
 
     Holds the versioned bucket-tile caches (`data.cache`, one
-    subdirectory per materialized workload), the same root the
-    reference package uses.
+    subdirectory per materialized workload) and the solver planner's
+    cached plans (`core.planner`, under ``plans_torch/``), the same
+    root the reference package uses.
     """
     if cache_dir is not None:
         return pathlib.Path(cache_dir)

@@ -14,6 +14,7 @@ kernel's links).  The misfit
 predicates say, on static shapes, whether a kernel
 can take a workload; their budgets are the H100's: 227 KB of opt-in
 shared memory per block, and global memory for what does not fit.
+`plan_solver` is the door into the geometry planner (`core.planner`).
 """
 from __future__ import annotations
 
@@ -82,6 +83,37 @@ def sparse_solver_plan(n_local: int, nnz: int, d: int, bucket: int, *,
     if model_lanes > 1 and not sdca_sparse_bucket.fits_smem(bucket, nnz):
         return "kernel-sharded", None
     return "kernel", None
+
+
+def plan_solver(n: int, d: int, *, nnz: int = 0, sparse: bool = False,
+                name: str = "", bucket: int | None = None,
+                chunks: int | None = None,
+                nnz_multiple: int | None = None, model_lanes: int = 1,
+                streamed: bool = False, cache_dir=None, probe_fn=None,
+                spec=None, device="cuda"):
+    """Geometry and route for a workload: -> `core.planner.SolverPlan`.
+
+    The kernels-side door into the planner: the workload signature of
+    (n, d, nnz, sparse), the topology of `device` (the card unless the
+    caller asks for the CPU) with the pods and lanes of `spec` (an
+    `EngineConfig`; one worker without it, as in the reference, whose
+    door takes no deployment), and `planner.resolve_plan` under
+    ``$REPRO_PLAN``, with the plan cached per (workload, topology).
+    Knobs passed explicitly are kept.  ``streamed=True`` adds the
+    host-to-device ingest bytes to the score and ``|st1`` to the
+    workload's fingerprint.  `probe_fn(plan) -> seconds` times a
+    candidate under ``$REPRO_PLAN=probe``; on the card what it raises
+    propagates.
+    """
+    from repro_torch.core import planner
+    sig = planner.WorkloadSignature(n=int(n), d=int(d), nnz=int(nnz),
+                                    sparse=bool(sparse), name=name,
+                                    streamed=bool(streamed))
+    topo = planner.Topology.detect(spec, model_lanes=model_lanes,
+                                   device=device)
+    return planner.resolve_plan(sig, topo, bucket=bucket, chunks=chunks,
+                                nnz_multiple=nnz_multiple,
+                                cache_dir=cache_dir, probe_fn=probe_fn)
 
 
 def sparse_kernel_misfit(n_local: int, nnz: int, d: int, bucket: int,

@@ -26,9 +26,11 @@ tensor operations of `core.engine.StackedMeshCollectives`:
 
 Workers = pods x data lanes (x model lanes when features are not
 sharded); sigma' = #workers (CoCoA+ adding).  `estimator_epoch` puts a
-fitted estimator's epoch on a mesh.  `scale_for_dataset` (with the
-planner, ROADMAP A10), `glm_input_specs` and the streamed mesh path
-(A11) are not ported yet.
+fitted estimator's epoch on a mesh.  `scale_for_dataset` sizes a
+registry dataset at its real shape, its layout (and under
+``$REPRO_PLAN=search|probe`` its bucket and chunks) from the planner
+(`core.planner`).  `glm_input_specs` and the streamed mesh path (A11)
+are not ported yet.
 """
 from __future__ import annotations
 
@@ -36,7 +38,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.core import engine
+from repro_torch.core import engine, planner
 from repro_torch.core.config import (AlgoConfig, DeploymentConfig,
                                      EngineConfig)
 from repro_torch.core.objectives import LOGISTIC, Objective
@@ -232,6 +234,44 @@ def make_sparse_epoch(scale: GLMScale, mesh: StackedMesh,
                 y.reshape(n), a.reshape(n), v)
 
     return epoch_fn
+
+
+def scale_for_dataset(name: str, *, device="cuda",
+                      **overrides) -> GLMScale:
+    """Registry dataset -> a deployment-scale `GLMScale`.
+
+    Sizes come from the registry's real shapes: n padded to a multiple
+    of 32,768, d (from 4,096 up) to a multiple of 4,096, nnz to a
+    multiple of 8, as the reference derives them.  The layout, and
+    under ``$REPRO_PLAN=search|probe`` the bucket and chunks, come from
+    `planner.resolve_plan` on the topology of `device` (the card unless
+    the caller asks for the CPU): wide dense data (d >= 512) is
+    tensor-parallel, sparse data shards its features exactly when the
+    padded f32 v exceeds the card's L2.  Explicit overrides win.
+    """
+    from repro_torch.data.registry import get_spec
+
+    spec = get_spec(name)
+    n = -(-spec.full_n // 32_768) * 32_768
+    d = -(-spec.full_d // 4_096) * 4_096 if spec.full_d >= 4_096 \
+        else spec.full_d
+    kw = dict(name=f"glm-{name}", kind=spec.kind, n=n, d=d,
+              lam=spec.lam)
+    sparse = spec.kind == "sparse"
+    if sparse:
+        kw["nnz"] = -(-spec.nnz // 8) * 8
+    sig = planner.WorkloadSignature(n=n, d=d, nnz=kw.get("nnz", 0),
+                                    sparse=sparse, name=name)
+    searching = planner.plan_mode() in ("search", "probe")
+    plan = planner.resolve_plan(
+        sig, planner.Topology.detect(device=device),
+        bucket=overrides.get("bucket", None if searching else 16),
+        chunks=overrides.get("chunks", None if searching else 4))
+    kw["feature_shard"] = plan.feature_shard
+    if searching:
+        kw["bucket"], kw["chunks"] = plan.bucket, plan.chunks
+    kw.update(overrides)
+    return GLMScale(**kw)
 
 
 def scale_for_estimator(est, **overrides) -> GLMScale:

@@ -13,6 +13,8 @@ the collectives become ordered tensor operations
 (`core.engine.StackedMeshCollectives`), and `launch.glm` runs the dense
 and sparse epoch programs on it in every role of the model axis.
 Meshes over several GPUs (NCCL, ROADMAP A11) are not ported yet.
+`H2D_BW` and `HBM_BW` are the card's host-link and memory rates, defined
+once in `core.planner` (its streamed-plan score) and re-exported here.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.core.planner import H2D_BW, HBM_BW  # noqa: F401
 from repro_torch.device import resolve_device
 
 AXES = ("pod", "data", "model")

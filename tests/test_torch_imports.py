@@ -65,6 +65,7 @@ def test_new_modules_are_checked():
             "src/repro_torch/api/callbacks.py",
             "src/repro_torch/api/deprecation.py",
             "src/repro_torch/core/cocoa.py",
+            "src/repro_torch/core/planner.py",
             "src/repro_torch/resilience/faultinject.py",
             "src/repro_torch/resilience/journal.py",
             "src/repro_torch/resilience/feed.py",

@@ -182,17 +182,31 @@ STALL_TOPO = dict(pods=2, lanes=4, bucket=16, partition="hierarchical",
                   deterministic=True)
 
 
-def test_four_chunks_stall_the_gap_in_both_packages(tmp_path):
-    """The port follows the reference where 4 chunks stall the gap: after
-    3 epochs both packages' gaps at 4 chunks stay above 10x their gaps
-    at 1 chunk, and the port stays within the reference's tolerances
-    after every epoch of both runs."""
-    one, four = (_streamed_both("higgs", STALL_TOPO, c, tmp_path,
-                                "logistic", n=8192) for c in (1, 4))
+def _chunked_stall(topo, chunks, tmp_path):
+    """After 3 epochs both packages' gaps at `chunks` stay above 10x
+    their gaps at 1 chunk, and the port stays within the reference's
+    tolerances after every epoch of both runs."""
+    one, many = (_streamed_both("higgs", topo, c, tmp_path, "logistic",
+                                n=8192) for c in (1, chunks))
     print(f"gaps after epochs 1-3, reference / port: 1 chunk {one[0]} / "
-          f"{one[1]}; 4 chunks {four[0]} / {four[1]}")
+          f"{one[1]}; {chunks} chunks {many[0]} / {many[1]}")
     for k in (0, 1):                      # the reference, then the port
-        assert four[k][-1] > 10 * one[k][-1], (one[k], four[k])
+        assert many[k][-1] > 10 * one[k][-1], (one[k], many[k])
+    return many
+
+
+def test_four_chunks_stall_the_gap_in_both_packages(tmp_path):
+    """The port follows the reference where 4 chunks stall the gap."""
+    _chunked_stall(STALL_TOPO, 4, tmp_path)
+
+
+def test_eight_chunks_at_bucket_8_stall_the_gap_in_both_packages(tmp_path):
+    """The geometry the planner's search picks for HIGGS on 2 pods (B 8,
+    8 chunks) stalls the gap in the reference as in the port, the gap
+    rising after the first epoch as it does on the card."""
+    many = _chunked_stall(dict(STALL_TOPO, bucket=8), 8, tmp_path)
+    for gaps in many:
+        assert gaps[1] > gaps[0], many
 
 
 def test_bucket_mismatch_guard(tmp_path):
