@@ -26,8 +26,13 @@ The resilience runtime (`repro_torch.resilience`) is opt-in:
 journal resumes at the last committed epoch, and a streamed epoch at
 its last journaled chunk), ``health=`` puts a `HealthMonitor` first in
 `fit`'s callbacks, and ``faults=`` (default: ``$REPRO_FAULTS``) injects
-a seeded `FaultInjector`.  Meshes are a later slice of the port and
-raise `NotImplementedError` naming their ROADMAP queue item.
+a seeded `FaultInjector`.
+
+``mesh=`` (a `launch.mesh.StackedMesh` or a process mesh, `DistMesh`)
+streams the chunks onto the mesh (`launch.glm.make_streamed_epoch_mesh`),
+so it needs a streamed source; the epochs are bitwise resident training
+on the same mesh, and on a process mesh every rank's `alpha` and `v`
+are the stacked mesh's.
 
 Examples are PADDED (x=0, y=+1 — inert, a zero row never moves v) up
 to the multiple the chosen topology needs; ``n_examples`` records the
@@ -86,9 +91,18 @@ def _pad_multiple(spec: EngineConfig, bucket: int) -> int:
     return dep.pods * dep.lanes * dep.lanes * algo.chunks * max(bucket, 1)
 
 
-def _unported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP queue {item})")
+def _feed_nnz(feed) -> Optional[int]:
+    """The padded row width of a sparse feed: a mesh feed's own, an
+    array feed's idx, or a cache's (through a ResilientChunkFeed too)."""
+    nnz = getattr(feed, "nnz", None)
+    if nnz:
+        return int(nnz)
+    inner = getattr(feed, "feed", feed)
+    fidx = getattr(inner, "idx", None)
+    if fidx is not None:
+        return int(np.shape(fidx)[-1])
+    cache = getattr(inner, "cache", None)
+    return int(cache.meta.nnz) if cache is not None else None
 
 
 class Session:
@@ -109,9 +123,13 @@ class Session:
                  cache_dir=None, nnz_multiple: Optional[int] = None,
                  health=None, journal_dir=None, journal_every: int = 1,
                  faults=None):
-        if mesh is not None:
-            _unported("mesh= (multi-GPU training)", "A11")
         self.device = resolve_device(device)
+        if mesh is not None:
+            if not same_device(mesh.device, self.device):
+                raise ValueError(f"the mesh lives on {mesh.device}; the "
+                                 f"session runs on {self.device}")
+            self.device = mesh.device
+        self._mesh = mesh
         self.spec = as_engine_config(cfg) if cfg is not None \
             else EngineConfig()
         self.streamed = streamed
@@ -145,17 +163,22 @@ class Session:
                                      data_dir=data_dir, streamed=streamed,
                                      cache_dir=cache_dir,
                                      nnz_multiple=nnz_multiple)
+        elif hasattr(data, "fetch"):               # ChunkFeed
+            self._init_from_feed(data, objective=objective, lam=lam)
         elif hasattr(data, "gather_buckets"):      # TileCache
             self._init_from_cache(data, objective=objective, lam=lam,
                                   streamed=streamed)
-        elif hasattr(data, "fetch"):               # ChunkFeed
-            self._init_from_feed(data, objective=objective, lam=lam)
         else:
             if y is None:
                 raise TypeError("array data requires labels: "
                                 "Session((X, y)) or Session(X, y)")
             self._init_from_arrays(data, y, objective=objective, lam=lam,
                                    d=d, bucket=bucket, pad=pad)
+        if self._mesh is not None and self.feed is None:
+            raise ValueError(
+                "mesh= streams chunks onto the mesh, so it needs a "
+                "streamed source: pass streamed=True (arrays/registry/"
+                "cache) or a ChunkFeed")
         if self._journal is not None:
             # restart: continue from the last committed epoch (a
             # mid-epoch record is consumed by the streamed loop itself)
@@ -404,7 +427,19 @@ class Session:
         at construction, and by the health remedies (solver reroute,
         damping) that change how an epoch runs.  The resident epochs
         read both at every call."""
-        if self.feed is not None:
+        if self.feed is not None and self._mesh is not None:
+            from repro_torch.launch import glm
+            kw: dict[str, Any] = {}
+            if self.sparse:
+                kw["feature_shard"] = self.spec.deployment.feature_shard
+                nnz = _feed_nnz(self.feed)
+                if nnz:
+                    kw["nnz"] = nnz
+            scale = glm.scale_for_estimator(self, **kw)
+            self._epoch_fn = glm.make_streamed_epoch_mesh(
+                scale, self._mesh, self.feed, obj=self.obj,
+                journal=self._journal, damp=self._damp)
+        elif self.feed is not None:
             self._epoch_fn = engine.make_streamed_epoch(
                 self.obj, self.spec, self.plan, self.feed, lam=self.lam,
                 journal=self._journal, damp=self._damp, device=self.device)
@@ -569,6 +604,14 @@ class Session:
 
     # -- diagnostics ----------------------------------------------------------
 
+    @property
+    def mesh_feed(self):
+        """The `engine.MeshChunkFeed` driving a mesh-streamed session (its
+        ``bytes_h2d``/``fetch_s`` counters); None off the mesh path."""
+        if self._mesh is None:
+            return None
+        return getattr(self._epoch_fn, "feed", None)
+
     def _streamed_primal_dual(self, gbuckets: int = 256
                               ) -> tuple[float, float]:
         """One streaming pass over the cache (or feed), `gbuckets`
@@ -586,7 +629,17 @@ class Session:
                 data, yb = self.cache.gather_buckets(bids)
                 data, yb = _to_device(data, dev), _to_device(yb, dev)
             else:
-                data, yb = self.feed.fetch(bids)
+                # a mesh feed (under a ResilientChunkFeed too, whose inner
+                # feed make_streamed_epoch_mesh upgrades in place) hands
+                # raw host rows: its sliced fetch gives per-lane
+                # compactions the margins cannot take
+                hf = getattr(self.feed, "host_fetch", None) or getattr(
+                    getattr(self.feed, "feed", None), "host_fetch", None)
+                if hf is not None:
+                    data, yb = hf(bids)
+                    data, yb = _to_device(data, dev), _to_device(yb, dev)
+                else:
+                    data, yb = self.feed.fetch(bids)
             m = margins(self.v, data)
             losses.append(torch.sum(self.obj.loss(m, yb)))
             a = self.alpha[start * B:start * B + yb.shape[0]]

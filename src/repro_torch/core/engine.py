@@ -1,4 +1,4 @@
-"""The solver engine, simulator path: ONE epoch program over P*K workers.
+"""The solver engine: ONE epoch program over P*K workers.
 
 The paper's algorithm — bucketed SDCA + dynamic bucket re-dealing +
 hierarchical aggregation — is a single bulk-synchronous program:
@@ -7,16 +7,26 @@ hierarchical aggregation — is a single bulk-synchronous program:
 
 `run_epoch` implements it once, parametrized by two seams:
 
-  * `SimCollectives` — pods x lanes *virtual* workers stacked on the
+  * the collectives — how workers are laid out and talk.
+    `SimCollectives`: pods x lanes *virtual* workers stacked on the
     leading axes of one device's tensors.  `map_workers` hands a solver
     the whole (P*K) stack in one call, so a kernel solver runs every
     worker in one launch; reductions are explicit left-to-right adds
-    over the lane and pod axes (the order the multi-GPU path will
-    reproduce).
+    over the lane and pod axes.  `StackedMeshCollectives` lays a
+    (pod, data, model) mesh out the same way; `MeshCollectives` runs it
+    across processes, one worker a process, over `torch.distributed`
+    (all-to-all re-deal, all-gathers summed in rank order), bitwise the
+    stacked mesh when ordered.
   * `LocalSolver` — how the workers solve their chunks: the plain
     PyTorch versions (`"torch"`, `core.sdca`) or the CUDA kernels
     (`"kernel"`, `kernels.ops`).  `"auto"` picks the kernel on a CUDA
     device and the plain version on the CPU.
+
+Out of core, `run_epoch_streamed` runs the same chunk body on chunks a
+`ChunkFeed` copies in; on a mesh `MeshSchedule` replays the mesh's
+re-deals and visit orders on the host and `MeshChunkFeed` lands each
+chunk in the mesh's layout (slice-compacted for feature-sharded sparse
+data), so a streamed mesh epoch is bitwise the resident one.
 
 Worker PRNG streams are drawn from the threefry port `core.prng`,
 integer-exact against the reference:
@@ -24,6 +34,8 @@ integer-exact against the reference:
     worker_key = fold(fold(fold(PRNGKey(seed), epoch), pod), lane)
     re-deal perm   <- fold(worker_key, 0)
     visit-order    <- fold(worker_key, 1)
+
+with `lane` counted data-major over the example-parallel axes.
 """
 from __future__ import annotations
 
@@ -34,6 +46,7 @@ from typing import Callable, Optional, Protocol, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.device import resolve_device, same_device
 from . import prng, sdca
@@ -477,6 +490,149 @@ class StackedMeshCollectives(SimCollectives):
         if self.data > 1:
             dv = q_psum(dv.transpose(1, 2))[:, None]          # (P, 1, M, d)
         return q_psum(dv[:, 0]) if self.model > 1 else dv[:, 0, 0]
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class MeshCollectives(SimCollectives):
+    """Real collectives over a `launch.mesh.DistMesh`: this process is ONE
+    worker of the (pod, data, model) mesh, and its tensors carry the
+    stacked worker shape (1, 1) (``pods`` and ``lanes`` stay 1), so
+    `run_epoch`, `chunk_inputs` and the solvers run unchanged, one
+    block a launch.
+
+    The reference's `MeshCollectives` with the model axis carrying
+    examples (the only role ported across processes; `launch.glm`
+    raises for the others): worker keys from this rank's pod and its
+    data-major lane; the re-deal an `all_to_all_single` over `data`
+    within the rank's (pod, model) group; the lane sum over `data`, then
+    `model`, as an `all_gather` summed in rank order (``deterministic``,
+    bitwise `StackedMeshCollectives`), an `all_reduce` otherwise, or
+    with ``compress`` the int8 two-phase `q_psum` (an `all_to_all` of
+    int8 shards, `all_gather`s of the scales and the reduced shards) in
+    the stacked `q_psum`'s rounding order; the pod reduce in the same
+    three forms, int8 on the wire under ``compress_pod``.
+
+    Under gloo on a CUDA device every collective (`all_gather`,
+    `all_to_all_single`, `all_reduce`) stages explicitly: its input is
+    copied to host memory, the op runs there, and the result is copied
+    back to the rank's device.  The kernels always run on the device.
+    """
+    mesh: object = None
+    deterministic: bool = False
+
+    def __post_init__(self):
+        if self.mesh is None:
+            raise ValueError("MeshCollectives needs a DistMesh")
+
+    @property
+    def lane(self) -> int:
+        """This rank's example lane, counted data-major."""
+        _, d, m = self.mesh.coords
+        return d * self.mesh.model + m
+
+    def worker_keys(self, seed: int, epoch: int) -> np.ndarray:
+        base = prng.fold_in(prng.PRNGKey(seed), int(epoch))
+        kp = prng.fold_in(base, self.mesh.coords[0])
+        return prng.fold_in(kp, self.lane).reshape(1, 1, 2)
+
+    # -- the three primitives, staged through the host under gloo --------
+
+    def _host(self, t: Tensor) -> Tensor:
+        return t.contiguous().cpu() if self.mesh.stages else t.contiguous()
+
+    def gather(self, t: Tensor, axis: Optional[str]) -> list[Tensor]:
+        """Every member's `t` in group-rank order (`axis` None: the
+        world), on this rank's device."""
+        x = self._host(t)
+        out = [torch.empty_like(x) for _ in range(self.mesh.group_size(axis))]
+        dist.all_gather(out, x, group=self.mesh.group(axis))
+        return [o.to(t.device) for o in out]
+
+    def _all_to_all(self, t: Tensor, axis: str) -> Tensor:
+        x = self._host(t)
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x, group=self.mesh.group(axis))
+        return out.to(t.device)
+
+    def _all_reduce(self, t: Tensor, axis: str) -> Tensor:
+        x = t.to("cpu" if self.mesh.stages else t.device, copy=True)
+        dist.all_reduce(x, group=self.mesh.group(axis))
+        return x.to(t.device)
+
+    def _gather_sum(self, t: Tensor, axis: str) -> Tensor:
+        return _ordered_sum(torch.stack(self.gather(t, axis)), 0)
+
+    # -- the engine's seam -------------------------------------------------
+
+    def redeal(self, arrs, nb_local: int, keys: np.ndarray, frac: float):
+        """The all-to-all bucket re-deal over `data`: shuffle this rank's
+        buckets, send split j of the first `exch` to data lane j, and
+        take lane i's split of ours in lane order (a tiled all_to_all)."""
+        D = self.mesh.data
+        if D <= 1 or frac <= 0:
+            return tuple(x for x, _ in arrs)
+        exch = max(int(nb_local * frac) // D * D, D)
+        perm = self._perms(keys, 0, nb_local, arrs[0][0].device)[0, 0]
+
+        def one(x, ax):
+            xb = torch.movedim(x, ax, 2)            # (1, 1, n_local, ...)
+            shp = xb.shape
+            rows = shp[2] // nb_local
+            xb = xb.reshape((nb_local, rows) + tuple(shp[3:]))[perm]
+            head = self._all_to_all(xb[:exch], "data")
+            xb = torch.cat([head, xb[exch:]], dim=0)
+            return torch.movedim(xb.reshape(shp), 2, ax)
+
+        return tuple(one(x, ax) for x, ax in arrs)
+
+    def _q_psum(self, x: Tensor, axis: str) -> Tensor:
+        """`q_psum` over one axis's group: x (n,) -> (n,)."""
+        from repro_torch.optim.compression import quantize
+        L = self.mesh.shape[axis]
+        n = x.shape[0]
+        pad = (-n) % L
+        if pad:
+            x = torch.nn.functional.pad(x, (0, pad))
+        qz = quantize(x)
+        shards = self._all_to_all(qz.q.reshape(L, -1), axis)  # lane i's shard
+        scales = torch.stack(self.gather(qz.scale.reshape(1), axis))
+        part = _ordered_sum(shards.float() * scales, 0)
+        qz2 = quantize(part)
+        q_all = torch.stack(self.gather(qz2.q, axis))
+        s_all = torch.stack(self.gather(qz2.scale.reshape(1), axis))
+        return (q_all.float() * s_all).reshape(-1)[:n]
+
+    def lane_sum(self, dv: Tensor, compress: bool = False) -> Tensor:
+        """(1, 1, d) this worker's delta -> (1, d): reduced over `data`,
+        then `model`."""
+        x = dv.reshape(-1)
+        for axis in ("data", "model"):
+            if self.mesh.shape[axis] <= 1:
+                continue
+            if compress:
+                x = self._q_psum(x, axis)
+            elif self.deterministic:
+                x = self._gather_sum(x, axis)
+            else:
+                x = self._all_reduce(x, axis)
+        return x[None]
+
+    def pod_reduce(self, v_pods: Tensor, v_in: Tensor) -> Tensor:
+        """(1, d) this pod's v and the epoch's v_in -> (d,)."""
+        if self.mesh.pod <= 1:
+            return v_pods[0]
+        dv = v_pods[0] - v_in[0]
+        if self.compress_pod:
+            from repro_torch.optim.compression import quantize
+            qz = quantize(dv)
+            q_all = torch.stack(self.gather(qz.q, "pod"))
+            s_all = torch.stack(self.gather(qz.scale.reshape(1), "pod"))
+            dv_sum = _ordered_sum(q_all.float() * s_all, 0)
+        elif self.deterministic:
+            dv_sum = self._gather_sum(dv, "pod")
+        else:
+            dv_sum = self._all_reduce(dv, "pod")
+        return v_in[0] + dv_sum
 
 
 # ---------------------------------------------------------------------------
@@ -969,3 +1125,392 @@ def make_streamed_epoch(obj: Objective, spec, plan, feed: ChunkFeed, *,
                                   stats=stats)
 
     return epoch_fn
+
+
+# ---------------------------------------------------------------------------
+# Mesh streaming: the streamed loop on a mesh
+# ---------------------------------------------------------------------------
+#
+# `run_epoch_streamed` needs a schedule, a feed, a step and the
+# collectives' pod_replicate/pod_reduce.  The classes below supply them
+# for a mesh, so the SAME loop (side stream, events, journal hooks,
+# stats) streams host-resident tiles onto a stacked or a process mesh:
+#
+#   MeshSchedule     — host replay of the mesh's re-deal and visit PRNG
+#                      streams: which GLOBAL buckets each worker trains
+#                      on, in which order, each epoch.
+#   MeshChunkFeed    — host gather and copy of a chunk in the mesh's
+#                      worker-major layout, slice-compacted per model
+#                      lane for feature-sharded sparse data.
+#   MeshStreamDriver — pod_replicate/pod_reduce, and on a process mesh
+#                      the epoch-end exchange of alpha.
+#
+# plus `make_mesh_streamed_step`, which reassembles compacted rows.
+
+
+class MeshSchedule:
+    """Host-side replay of the mesh epoch's bucket schedule.
+
+    The resident mesh re-deals buckets on the device (`redeal`: a
+    per-worker shuffle, then an all-to-all over `data`) and visits them
+    in a per-worker shuffled order.  To stream, the host must know which
+    GLOBAL bucket ids each worker holds every epoch, so this class
+    replays the same threefry streams (`core.prng`):
+
+        worker_key = fold(fold(fold(PRNGKey(seed), epoch), pod), lane)
+        re-deal perm <- fold(worker_key, 0);  visit <- fold(worker_key, 1)
+
+    applies the all-to-all's index permutation to a persistent bucket
+    LAYOUT (initially contiguous, as a flat global array is dealt to the
+    example shards) and composes the re-deals epoch over epoch, as the
+    resident layout persists.  `schedule(e)` is a pure function of
+    (seed, e), so a resumed epoch replays the resident bucket order.
+
+    `lane` is counted data-major over the example axes: when the model
+    axis carries examples lane = data_idx * M + model_idx and the
+    re-deal exchanges within each (pod, model) column over the D data
+    lanes; when it carries slices (feature sharding, dense TP) lane =
+    data_idx.  Integer for integer the reference's `MeshSchedule`.
+    """
+
+    def __init__(self, n_buckets: int, *, pods: int = 1, data: int = 1,
+                 model: int = 1, model_in_lanes: bool = True,
+                 seed: int = 0, redeal: bool = True,
+                 redeal_frac: float = 1.0, visit_shuffle: bool = True):
+        self.n_buckets = int(n_buckets)
+        self.pods, self.data, self.model = int(pods), int(data), int(model)
+        self.model_in_lanes = bool(model_in_lanes)
+        self.lanes = self.data * self.model if model_in_lanes else self.data
+        if self.n_buckets % (self.pods * self.lanes):
+            raise ValueError(
+                f"n_buckets={n_buckets} not divisible by "
+                f"{self.pods} pods x {self.lanes} lanes")
+        self.seed = int(seed)
+        self.redeal = bool(redeal)
+        self.redeal_frac = float(redeal_frac)
+        self.visit_shuffle = bool(visit_shuffle)
+        self._base = np.arange(self.n_buckets, dtype=np.int32).reshape(
+            self.pods, self.lanes, self.per_lane)
+        self._layouts: list[np.ndarray] = []   # post-redeal, per epoch
+
+    @property
+    def per_lane(self) -> int:
+        return self.n_buckets // (self.pods * self.lanes)
+
+    def _keys(self, epoch: int) -> np.ndarray:
+        return SimCollectives(self.pods, self.lanes).worker_keys(self.seed,
+                                                                 epoch)
+
+    def _perm(self, key, stream: int) -> np.ndarray:
+        return prng.permutation(prng.fold_in(key, stream), self.per_lane)
+
+    def _redeal(self, layout: np.ndarray, keys) -> np.ndarray:
+        """One epoch's re-deal: shuffle each lane's buckets and exchange
+        the first `exch` over `data` by the tiled all_to_all's index
+        permutation."""
+        D = self.data
+        nb = self.per_lane
+        if D <= 1 or self.redeal_frac <= 0:
+            return layout
+        exch = max(int(nb * self.redeal_frac) // D * D, D)
+        g = exch // D
+        out = layout.copy()
+        cols = self.model if self.model_in_lanes else 1
+        for p in range(self.pods):
+            for m in range(cols):
+                lanes = [i * cols + m for i in range(D)]
+                shuf = [out[p, ln][self._perm(keys[p, ln], 0)]
+                        for ln in lanes]
+                for j, lnj in enumerate(lanes):
+                    head = np.concatenate(
+                        [shuf[i][j * g:(j + 1) * g] for i in range(D)])
+                    out[p, lnj] = np.concatenate([head, shuf[j][exch:]])
+        return out
+
+    def layout(self, epoch: int) -> np.ndarray:
+        """(pods, lanes, per_lane) GLOBAL bucket ids each worker holds
+        AFTER epoch `epoch`'s re-deal: the layout the resident mesh
+        trains on during that epoch (tests map resident state back to
+        global order with it)."""
+        if not self.redeal:
+            return self._base
+        while len(self._layouts) <= epoch:
+            r = len(self._layouts)
+            prev = self._layouts[r - 1] if r else self._base
+            self._layouts.append(self._redeal(prev, self._keys(r)))
+        return self._layouts[epoch]
+
+    def schedule(self, epoch) -> np.ndarray:
+        """(pods, lanes, per_lane) bucket ids in VISIT order: the
+        `plan.schedule` contract `run_epoch_streamed` consumes."""
+        e = int(epoch)
+        lay = self.layout(e)
+        if not self.visit_shuffle:
+            return lay.copy()
+        keys = self._keys(e)
+        out = np.empty_like(lay)
+        for p in range(self.pods):
+            for ln in range(self.lanes):
+                out[p, ln] = lay[p, ln][self._perm(keys[p, ln], 1)]
+        return out
+
+    def worker(self, pod: int, lane: int) -> "WorkerSchedule":
+        """One worker's view, for a process that streams only its own
+        buckets."""
+        return WorkerSchedule(self, pod, lane)
+
+
+@dataclasses.dataclass(frozen=True)
+class WorkerSchedule:
+    """One worker's rows of a `MeshSchedule`: `schedule(e)` is (1, 1,
+    per_lane), the stacked shape of a process mesh's worker."""
+    mesh_schedule: MeshSchedule
+    pod: int
+    lane: int
+
+    @property
+    def per_lane(self) -> int:
+        return self.mesh_schedule.per_lane
+
+    def schedule(self, epoch) -> np.ndarray:
+        return self.mesh_schedule.schedule(epoch)[self.pod, self.lane][
+            None, None]
+
+
+class MeshChunkFeed:
+    """`ChunkFeed` that lands each chunk in a mesh's layout.
+
+    The host gathers a chunk's buckets (from a `TileCache`'s mmap'd
+    tiles or an `ArrayFeed`'s host arrays) in the shape of the bucket
+    ids it is asked for, (*wshape, nb): worker-major, the order a flat
+    global array is dealt to the mesh's example shards.  On a stacked
+    mesh that is every worker's rows in one pinned copy; on a process
+    mesh each rank asks for, gathers and copies only its own.  Copies
+    go through `PinnedStaging` (on the calling thread's current stream:
+    the streamed loop's side stream).
+
+    Feature-sharded sparse data (``model_lanes`` and ``d_loc`` set)
+    uses the slice-compacted feed: each row is compacted to each model
+    lane's [m*d_loc, (m+1)*d_loc) slice (`TileCache.slice_gather` /
+    `data.cache.compact_slice_rows` with ``positions=True``), and the
+    feed ships (M, *wshape, rows, w) idx/val/pos stacks, each lane
+    only its slice's entries; the step reassembles exact rows on the
+    device (`reassemble_rows`).  The width `w` is fixed at construction
+    (one scan over the nonzeros, or ``width=``), so every chunk has one
+    shape.
+
+    ``verify=True`` crc-checks the touched tiles of a cache per fetch
+    (as `TileFeed`); `rebind(cache)` swaps in a rebuilt `TileCache`
+    after a quarantine, so `ResilientChunkFeed` keeps the mesh layout
+    and the width.  ``bytes_h2d``, ``fetch_s`` and ``fetches`` count the
+    bytes copied and the host seconds of every fetch.
+    """
+
+    def __init__(self, source, *, model_lanes: Optional[int] = None,
+                 d_loc: Optional[int] = None, verify: bool = False,
+                 width: Optional[int] = None, nnz_multiple: int = 8,
+                 device="cuda"):
+        from repro_torch.data.cache import PinnedStaging
+        if hasattr(source, "meta"):                  # TileCache
+            self.cache, self.host = source, None
+            m = source.meta
+            self.n, self.d, self.bucket = m.n, m.d, m.bucket
+            self.sparse = m.kind == "sparse"
+            self.nnz = m.nnz if self.sparse else 0
+        else:                                        # ArrayFeed
+            self.cache, self.host = None, source
+            self.n, self.d = int(source.n), int(source.d)
+            self.bucket, self.sparse = source.bucket, source.sparse
+            self.nnz = int(source.idx.shape[-1]) if self.sparse else 0
+        self.verify = bool(verify)
+        self.nnz_multiple = int(nnz_multiple)
+        self.sliced = model_lanes is not None and self.sparse
+        self.model_lanes = model_lanes
+        self.d_loc = d_loc
+        if self.sliced and d_loc is None:
+            raise ValueError("slice-compacted feed needs d_loc")
+        self.width = ((int(width) if width else self._scan_width())
+                      if self.sliced else None)
+        self.staging = PinnedStaging(device)
+        self.device = self.staging.device
+        self.reset_stats()
+
+    @property
+    def _src(self):
+        return self.cache if self.cache is not None else self.host
+
+    def rebind(self, cache) -> None:
+        """Swap in a rebuilt TileCache (recovery after a quarantine)."""
+        if self.cache is None:
+            raise ValueError("rebind() only applies to cache-backed feeds")
+        self.cache = cache
+
+    def reset_stats(self) -> None:
+        self.bytes_h2d, self.fetch_s, self.fetches = 0, 0.0, 0
+
+    def _scan_width(self) -> int:
+        """The compaction width: the most in-slice entries of any row of
+        the WHOLE dataset, ceiled to `nnz_multiple` (at most nnz), so
+        every chunk's compacted arrays share one shape."""
+        best = 1
+        if self.cache is not None:
+            idx_f = self.cache._flat("idx")
+            val_f = self.cache._flat("val")
+            nnz = idx_f.shape[-1]
+            per_tile = int(np.prod(idx_f.shape[1:]))
+            step = max(1, (1 << 22) // max(per_tile, 1))
+            for s in range(0, idx_f.shape[0], step):
+                idx = np.asarray(idx_f[s:s + step]).reshape(-1, nnz)
+                val = np.asarray(val_f[s:s + step]).reshape(-1, nnz)
+                best = max(best, self._max_count(idx, val))
+        else:
+            best = self._max_count(self.host.idx, self.host.val)
+        mult = self.nnz_multiple
+        return min(-(-best // mult) * mult, max(self.nnz, 1))
+
+    def _max_count(self, idx: np.ndarray, val: np.ndarray) -> int:
+        # the keep-mask of compact_slice_rows(positions=True): real
+        # entries and explicit (idx != 0, val == 0) zeros; (0, 0)
+        # padding is rebuilt by the reassembly's zero base
+        keep = (val != 0) | (idx != 0)
+        lane = idx // self.d_loc
+        best = 0
+        for m in range(self.model_lanes):
+            c = ((lane == m) & keep).sum(axis=-1)
+            best = max(best, int(c.max(initial=0)))
+        return best
+
+    def _fill_sliced(self, bids: np.ndarray, bufs) -> None:
+        from repro_torch.data.cache import compact_slice_rows
+        rows, y = self._src.gather_buckets(bids)
+        dl = self.d_loc
+        kw = dict(nnz_multiple=self.nnz_multiple, positions=True,
+                  width=self.width)
+
+        def lane(m):
+            if self.cache is not None:
+                # the per-lane compaction IS slice_gather (gathered=
+                # skips re-reading the tiles for every lane)
+                (gi, gv, gp), _ = self.cache.slice_gather(
+                    bids, m * dl, (m + 1) * dl, gathered=(rows, y), **kw)
+            else:
+                gi, gv, gp = compact_slice_rows(*rows, m * dl, (m + 1) * dl,
+                                                **kw)
+            bufs["idx"][m], bufs["val"][m], bufs["pos"][m] = gi, gv, gp
+
+        # one thread a lane: numpy's sorts and gathers release the GIL,
+        # and each lane writes only its own rows of the buffers
+        with ThreadPoolExecutor(max_workers=self.model_lanes) as ex:
+            list(ex.map(lane, range(self.model_lanes)))
+        bufs["y"][...] = y
+
+    def fetch(self, bids: np.ndarray):
+        t0 = time.perf_counter()
+        bids = np.asarray(bids)
+        lead, nb = bids.shape[:-1], bids.shape[-1]
+        if self.verify and self.cache is not None:
+            self.cache.verify_tiles(bids)
+        if self.sliced:
+            rows = lead + (nb * self.bucket,)
+            lanes = (self.model_lanes,) + rows + (self.width,)
+            specs = {"idx": (lanes, np.int32), "val": (lanes, np.float32),
+                     "pos": (lanes, np.int32), "y": (rows, np.float32)}
+            t = self.staging.put(specs,
+                                 lambda bufs: self._fill_sliced(bids, bufs))
+            data = (t["idx"], t["val"], t["pos"])
+        else:
+            t = self.staging.put(
+                self._src.chunk_specs(lead, nb),
+                lambda bufs: self._src.gather_buckets(bids, out=bufs))
+            data = (t["idx"], t["val"]) if self.sparse else t["X"]
+        self.bytes_h2d += sum(x.numel() * x.element_size()
+                              for x in t.values())
+        self.fetch_s += time.perf_counter() - t0
+        self.fetches += 1
+        return data, t["y"]
+
+    def host_fetch(self, bids: np.ndarray):
+        """The raw host rows ``(data, y)`` of the given buckets: never
+        compacted, never copied to the device.  The streamed gap pass
+        reads these, since a sliced `fetch` gives per-lane compactions
+        that the margins cannot take."""
+        return self._src.gather_buckets(np.asarray(bids).reshape(-1))
+
+
+def reassemble_rows(idx_c: Tensor, val_c: Tensor, pos: Tensor, nnz: int
+                    ) -> tuple[Tensor, Tensor]:
+    """Slice-compacted (M, *lead, rows, w) idx/val/pos -> the exact
+    (*lead, rows, nnz) padded-CSR rows they came from.
+
+    Kept entries scatter to their original (row, position); every
+    entry the compaction dropped is (idx=0, val=0) padding, which the
+    zero base reproduces, so the rows are bitwise the originals
+    (explicit zero values included).  Pad slots carry pos = nnz: they
+    land in one spare column, cropped afterwards (the reference's
+    scatter drops them; they hold zeros, so the spare column's value
+    does not depend on the order of those writes)."""
+    lead = tuple(idx_c.shape[1:-1])
+
+    def lanes_last(t):                     # -> (*lead, rows, M * w)
+        return torch.movedim(t, 0, -2).flatten(-2)
+
+    p = lanes_last(pos).long()
+    idx = torch.zeros(lead + (nnz + 1,), dtype=torch.int32,
+                      device=idx_c.device).scatter_(-1, p, lanes_last(idx_c))
+    val = torch.zeros(lead + (nnz + 1,), dtype=torch.float32,
+                      device=val_c.device).scatter_(-1, p, lanes_last(val_c))
+    return idx[..., :nnz].contiguous(), val[..., :nnz].contiguous()
+
+
+def make_mesh_streamed_step(coll, solver: LocalSolver, algo: AlgoConfig, *,
+                            nnz: Optional[int] = None,
+                            dv_scale: float = 1.0):
+    """The mesh twin of `make_streamed_step`: the same (data, yc, cols,
+    alpha, v) -> (alpha, v) step on a mesh's collectives, alpha the
+    global (n,) vector.  With ``nnz`` the chunk is slice-compacted
+    (`MeshChunkFeed` with model lanes), and its rows are reassembled
+    (`reassemble_rows`) before the solver sees them, so it gets the
+    bytes the resident mesh hands it."""
+    step = make_streamed_step(coll, solver, algo, dv_scale=dv_scale)
+    if nnz is None:
+        return step
+
+    def sliced_step(data, yc, cols, a, v_c):
+        return step(reassemble_rows(*data, nnz), yc, cols, a, v_c)
+
+    return sliced_step
+
+
+class MeshStreamDriver:
+    """What `run_epoch_streamed` asks of the collectives, for a mesh:
+    `pod_replicate` and `pod_reduce` (the stacked or the process mesh's
+    own), and `share_alpha` at the epoch's end.
+
+    On a process mesh each rank's step writes alpha only at its own
+    columns; `share_alpha` all-gathers every rank's columns (where the
+    schedule's `layout(epoch)` put them) so alpha is whole on every
+    rank, as the stacked mesh's.  On a stacked mesh it returns alpha as
+    it is.
+    """
+
+    def __init__(self, coll, schedule: MeshSchedule, bucket: int):
+        self.coll, self.schedule, self.bucket = coll, schedule, int(bucket)
+
+    def pod_replicate(self, v: Tensor) -> Tensor:
+        return self.coll.pod_replicate(v)
+
+    def pod_reduce(self, v_pods: Tensor, v_in: Tensor) -> Tensor:
+        return self.coll.pod_reduce(v_pods, v_in)
+
+    def share_alpha(self, alpha: Tensor, epoch: int) -> Tensor:
+        if not isinstance(self.coll, MeshCollectives):
+            return alpha
+        lay = self.schedule.layout(int(epoch)).astype(np.int64)
+        B = self.bucket
+        # (world, n_local) columns; a worker's (pod, lane) is its rank
+        cols = (lay[..., None] * B + np.arange(B)).reshape(lay.shape[0]
+                                                           * lay.shape[1], -1)
+        cols = torch.from_numpy(cols).to(alpha.device)
+        parts = self.coll.gather(alpha[cols[self.coll.mesh.rank]], None)
+        alpha[cols.reshape(-1)] = torch.cat(parts)
+        return alpha

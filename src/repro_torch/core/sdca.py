@@ -62,12 +62,15 @@ def dense_bucket_pass(obj: Objective, xb: Tensor, yb: Tensor, ab: Tensor,
     a_new = torch.empty_like(ab)
     for b in range(xb.shape[-3]):
         Xt = xb[..., b, :, :]                            # (*w, d, B)
-        XtT = Xt.transpose(-1, -2)
-        m0 = (XtT @ v[..., None])[..., 0]
-        G = XtT @ Xt
+        # the matrix-vector products are elementwise products summed:
+        # a CPU matmul takes another kernel for one worker than for a
+        # stack, so its bits would depend on the worker count, and one
+        # process of a process mesh is one worker of the stacked mesh
+        m0 = (Xt * v[..., None]).sum(-2)
+        G = Xt.transpose(-1, -2) @ Xt
         deltas = bucket_solve(obj, G, m0, ab[..., b, :], yb[..., b, :],
                               lam_n, sigma_p)
-        v = v + (sigma_p / lam_n) * (Xt @ deltas[..., None])[..., 0]
+        v = v + (sigma_p / lam_n) * (Xt * deltas[..., None, :]).sum(-1)
         a_new[..., b, :] = ab[..., b, :] + deltas
     return a_new, v
 

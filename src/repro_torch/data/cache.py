@@ -52,7 +52,8 @@ from repro_torch.device import resolve_device
 __all__ = [
     "CACHE_MAGIC", "CACHE_VERSION", "CacheMeta", "TileCache",
     "TileCorruptionError", "PinnedStaging",
-    "ArrayFeed", "TileFeed", "build_cache", "open_cache", "pad_examples",
+    "ArrayFeed", "TileFeed", "build_cache", "compact_slice_rows",
+    "open_cache", "pad_examples",
 ]
 
 CACHE_MAGIC = "repro-tile-cache"
@@ -93,6 +94,75 @@ class TileCorruptionError(ValueError):
 
 def _ceil_to(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+def compact_slice_rows(idx: np.ndarray, val: np.ndarray, lo: int,
+                       hi: int, *, nnz_multiple: int = 8,
+                       positions: bool = False,
+                       width: int | None = None):
+    """Compact padded-CSR rows to the entries in feature slice [lo, hi).
+
+    The host half of the slice-compacted streamed feed, shared by
+    `TileCache.slice_gather` and the mesh feed's array-backed path; a
+    copy of the reference's, byte for byte.  Entries are kept IN ROW
+    ORDER (a stable left-compaction: the kernels' bitwise contract
+    depends on the within-row summation order) and right-padded to a
+    common width ``w``: the max kept count ceiled to ``nnz_multiple``,
+    or exactly ``width`` when given (so streamed chunks share one
+    shape; raises if a row overflows it).
+
+    Two modes:
+
+      * ``positions=False`` (default): keep nonzeros with
+        ``lo <= idx < hi`` and REBASE ids to slice-local coordinates
+        (idx - lo).  Returns ``(idx_loc, val_loc)``.
+      * ``positions=True``: the transfer format for exact row
+        reassembly on the device.  Keeps every in-slice entry that is
+        not (idx=0, val=0) padding, explicit zero VALUES included
+        (`formats.zero_duplicates` products), which a reassembled row
+        must reproduce, and returns ``(idx, val, pos)`` with GLOBAL ids
+        and each entry's original position in its row; pad slots carry
+        ``pos = nnz``, which the reassembly drops, so a scatter into a
+        zero base rebuilds the original row bitwise.
+
+    All outputs are (*lead, w): idx/pos int32, val float32.
+    """
+    if not 0 <= lo < hi:
+        raise ValueError(f"bad feature slice [{lo}, {hi})")
+    in_slice = (idx >= lo) & (idx < hi)
+    own = in_slice & (((val != 0) | (idx != 0)) if positions
+                      else (val != 0))
+    # stable left-compaction: sort each row by (not owned) so owned
+    # entries keep their relative order
+    order = np.argsort(~own, axis=-1, kind="stable")
+    idx_s = np.take_along_axis(idx, order, axis=-1)
+    val_s = np.take_along_axis(val, order, axis=-1)
+    own_s = np.take_along_axis(own, order, axis=-1)
+    need = max(int(own.sum(axis=-1).max(initial=0)), 1)
+    if width is None:
+        w = _ceil_to(need, nnz_multiple)
+    else:
+        w = int(width)
+        if need > w:
+            raise ValueError(
+                f"width={w} too narrow: a row holds {need} entries "
+                f"in slice [{lo}, {hi})")
+    nnz = idx.shape[-1]
+    val_c = np.where(own_s, val_s, 0.0).astype(np.float32)
+    if positions:
+        idx_c = np.where(own_s, idx_s, 0).astype(np.int32)
+        pos = np.where(own_s, order, nnz).astype(np.int32)
+        outs = [idx_c, val_c, pos]
+        fills = [0, 0.0, nnz]     # pad slots keep the drop sentinel
+    else:
+        idx_c = np.where(own_s, idx_s - lo, 0).astype(np.int32)
+        outs = [idx_c, val_c]
+        fills = [0, 0.0]
+    if w > nnz:                   # raw caches with unaligned nnz
+        pad = [(0, 0)] * (idx_c.ndim - 1) + [(0, w - nnz)]
+        outs = [np.pad(o, pad, constant_values=f)
+                for o, f in zip(outs, fills)]
+    return tuple(np.ascontiguousarray(o[..., :w]) for o in outs)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -395,6 +465,31 @@ class TileCache:
                     out=out[aname].reshape(lead + (nb, B, m.nnz)))
         return (out["idx"], out["val"]), out["y"]
 
+    def slice_gather(self, bids: np.ndarray, lo: int, hi: int, *,
+                     nnz_multiple: int = 8, positions: bool = False,
+                     width: int | None = None, gathered=None):
+        """Gather sparse bucket tiles compacted to a feature slice [lo, hi).
+
+        A model lane that owns rows [lo, hi) of the shared vector needs
+        only the nonzeros in its slice.  The compaction is
+        `compact_slice_rows` (``positions``/``width`` pass through): by
+        default slice-LOCAL ``((idx_loc, val_loc), y)``; with
+        ``positions=True`` the mesh transfer format ``((idx, val, pos),
+        y)``, global ids and each entry's position in its row, which
+        `engine.MeshChunkFeed` ships per model lane and the mesh step
+        scatters back into exact rows.  ``gathered`` is a prior
+        ``gather_buckets(bids)`` result, so a feed compacting one chunk
+        for M lanes reads the mmap once.
+        """
+        if self.meta.kind != "sparse":
+            raise ValueError("slice_gather is sparse-only")
+        (idx, val), y = (gathered if gathered is not None
+                         else self.gather_buckets(bids))
+        out = compact_slice_rows(idx, val, lo, hi,
+                                 nnz_multiple=nnz_multiple,
+                                 positions=positions, width=width)
+        return out, y
+
     def feed(self, *, verify: bool = False, device="cuda") -> "TileFeed":
         return TileFeed(self, verify=verify, device=device)
 
@@ -527,9 +622,11 @@ class ArrayFeed:
                 + np.arange(B, dtype=np.int32)).reshape(
                     bids.shape[:-1] + (-1,))
 
-    def fetch(self, bids: np.ndarray):
-        cols = self._cols(np.asarray(bids))
-        rows = cols.shape
+    def chunk_specs(self, lead: tuple[int, ...], nb: int
+                    ) -> dict[str, tuple[tuple[int, ...], np.dtype]]:
+        """name -> (shape, dtype) of what `gather_buckets` returns for
+        bucket ids of shape (*lead, nb) (`TileCache.chunk_specs`)."""
+        rows = tuple(lead) + (nb * self.bucket,)
         if self.sparse:
             nnz = self.idx.shape[1]
             specs = {"idx": (rows + (nnz,), np.int32),
@@ -537,16 +634,30 @@ class ArrayFeed:
         else:
             specs = {"X": (rows[:-1] + (self.d, rows[-1]), np.float32)}
         specs["y"] = (rows, np.float32)
+        return specs
 
-        def fill(bufs):
-            np.take(self.y, cols, out=bufs["y"])
-            if self.sparse:
-                np.take(self.idx, cols, axis=0, out=bufs["idx"])
-                np.take(self.val, cols, axis=0, out=bufs["val"])
-            else:                                 # (*lead, d, m)
-                np.copyto(bufs["X"], np.moveaxis(self.X[:, cols], 0, -2))
+    def gather_buckets(self, bids: np.ndarray, out=None):
+        """The rows of bucket ids (*lead, nb), into ``out`` (a dict of
+        arrays shaped as `chunk_specs` says; new ones when None):
+        `TileCache.gather_buckets`'s contract over the host arrays."""
+        bids = np.asarray(bids)
+        cols = self._cols(bids)
+        if out is None:
+            out = {k: np.empty(s, dt) for k, (s, dt) in
+                   self.chunk_specs(bids.shape[:-1], bids.shape[-1]).items()}
+        np.take(self.y, cols, out=out["y"])
+        if self.sparse:
+            np.take(self.idx, cols, axis=0, out=out["idx"])
+            np.take(self.val, cols, axis=0, out=out["val"])
+            return (out["idx"], out["val"]), out["y"]
+        np.copyto(out["X"], np.moveaxis(self.X[:, cols], 0, -2))
+        return out["X"], out["y"]
 
-        t = self.staging.put(specs, fill)
+    def fetch(self, bids: np.ndarray):
+        bids = np.asarray(bids)
+        specs = self.chunk_specs(bids.shape[:-1], bids.shape[-1])
+        t = self.staging.put(
+            specs, lambda bufs: self.gather_buckets(bids, out=bufs))
         if self.sparse:
             return (t["idx"], t["val"]), t["y"]
         return t["X"], t["y"]

@@ -64,11 +64,18 @@ def _lib_path(stem: str, extra: tuple[str, ...]) -> pathlib.Path:
     return build_dir() / f"lib{stem}-{h.hexdigest()[:12]}.so"
 
 
+def unbuilt() -> list[str]:
+    """The registered sources that have no current build (a process that
+    must not compile, such as a rank of a process mesh whose parent
+    built the kernels, checks that this is empty)."""
+    return [stem for stem, extra in _sources().items()
+            if not _lib_path(stem, extra).exists()]
+
+
 def build_all() -> None:
     """Compile every registered source that has no current build, in
     parallel."""
-    todo = {stem: extra for stem, extra in _sources().items()
-            if not _lib_path(stem, extra).exists()}
+    todo = {stem: _sources()[stem] for stem in unbuilt()}
     if not todo:
         return
     build_dir().mkdir(parents=True, exist_ok=True)

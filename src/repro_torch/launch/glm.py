@@ -2,9 +2,11 @@
 
 The reference binds `core.engine`'s epoch (re-deal -> chunked local
 sub-epoch -> sync -> pod reduce) to a ("pod", "data", "model") device
-mesh with shard_map.  Here the mesh is stacked on one device
-(`launch.mesh.make_host_mesh`) and its collectives are the ordered
-tensor operations of `core.engine.StackedMeshCollectives`:
+mesh with shard_map.  Here the mesh is either stacked on one device
+(`launch.mesh.make_host_mesh`, the collectives the ordered tensor
+operations of `core.engine.StackedMeshCollectives`) or a process mesh
+(`launch.mesh.make_dist_mesh`, one worker a process, the collectives
+`core.engine.MeshCollectives` over `torch.distributed`):
 
   * static partition of examples across pods; only the d-sized v delta
     crosses pods, once per epoch (int8 on the wire with compress_pod);
@@ -19,22 +21,31 @@ tensor operations of `core.engine.StackedMeshCollectives`:
     slice of v, the working sets are exchanged once per bucket (the
     feature-sharded CUDA kernel pair), and 'model' joins the sync axes,
     so the ordered dv sum reassembles the slices.  Without
-    feature_shard the model axis is more example lanes;
+    feature_shard the model axis is more example lanes.  On a process
+    mesh only that last role is ported (ROADMAP A11b holds the others);
   * v replicas sync over 'data' (and 'model' when it carries examples
     or sparse slices) once per chunk, in f32 or, with compress_sync, by
     the int8 two-phase `engine.q_psum`.
 
 Workers = pods x data lanes (x model lanes when features are not
-sharded); sigma' = #workers (CoCoA+ adding).  `estimator_epoch` puts a
-fitted estimator's epoch on a mesh.  `scale_for_dataset` sizes a
-registry dataset at its real shape, its layout (and under
-``$REPRO_PLAN=search|probe`` its bucket and chunks) from the planner
-(`core.planner`).  `glm_input_specs` and the streamed mesh path (A11)
-are not ported yet.
+sharded); sigma' = #workers (CoCoA+ adding).  On a stacked mesh the
+epoch functions take and return the global arrays; on a process mesh
+each rank's takes and returns its own shards, as a shard_map body
+does: `glm_input_specs` gives each input's global shape and partition,
+`local_shard` cuts a rank's shard out of a global array and
+`assemble_shards` puts the ranks' shards back together.
+`make_streamed_epoch_mesh` streams a tile cache or host arrays onto
+either mesh (`engine.MeshSchedule`, `engine.MeshChunkFeed`), bitwise
+the resident epochs.  `estimator_epoch` puts a fitted estimator's epoch
+on a mesh.  `scale_for_dataset` sizes a registry dataset at its real
+shape, its layout (and under ``$REPRO_PLAN=search|probe`` its bucket
+and chunks) from the planner (`core.planner`).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
+from typing import NamedTuple, Optional, Sequence, Union
 
 import torch
 
@@ -42,7 +53,9 @@ from repro_torch.core import engine, planner
 from repro_torch.core.config import (AlgoConfig, DeploymentConfig,
                                      EngineConfig)
 from repro_torch.core.objectives import LOGISTIC, Objective
-from repro_torch.launch.mesh import StackedMesh
+from repro_torch.launch.mesh import DistMesh, StackedMesh, rank_coords
+
+Mesh = Union[StackedMesh, DistMesh]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,7 +125,7 @@ GLM_CONFIGS = {
 }
 
 
-def _axes(mesh: StackedMesh, scale: GLMScale):
+def _axes(mesh: Mesh, scale: GLMScale):
     """-> (example_axes, sync_axes, has_pod, model_is_tp).
 
     feature_shard picks the model axis's role.  Dense TP shards the v
@@ -134,7 +147,7 @@ def _axes(mesh: StackedMesh, scale: GLMScale):
     return ex, sync, has_pod, False
 
 
-def _worker_count(mesh: StackedMesh, scale: GLMScale) -> int:
+def _worker_count(mesh: Mesh, scale: GLMScale) -> int:
     ex, _, _, _ = _axes(mesh, scale)
     n = 1
     for a in ex:
@@ -142,39 +155,60 @@ def _worker_count(mesh: StackedMesh, scale: GLMScale) -> int:
     return n
 
 
-def _collectives(mesh: StackedMesh, scale: GLMScale
-                 ) -> engine.StackedMeshCollectives:
+def _collectives(mesh: Mesh, scale: GLMScale):
+    """The mesh's collectives: `engine.StackedMeshCollectives` on a
+    stacked mesh (every role of the model axis), `engine.MeshCollectives`
+    on a process mesh (the model axis carrying examples)."""
     _, _, _, tp = _axes(mesh, scale)
     pods, model = mesh.shape["pod"], mesh.shape["model"]
+    role = ("tp" if tp else "slices" if scale.feature_shard
+            else "examples")
+    if isinstance(mesh, DistMesh):
+        if role != "examples":
+            what = ("dense tensor parallelism" if tp
+                    else "sparse feature sharding")
+            raise NotImplementedError(
+                f"{scale.name}: on a process mesh the model axis carries "
+                f"examples only; feature_shard ({what}) across processes "
+                f"is not ported yet (ROADMAP A11b)")
+        return engine.MeshCollectives(
+            mesh=mesh, compress_pod=scale.compress_pod,
+            deterministic=scale.deterministic)
     if tp and scale.d % model:
         raise ValueError(
             f"{scale.name}: dense tensor parallelism splits d={scale.d} "
             f"over model={model} lanes; d must be a multiple of it (the "
             f"reference's P('model') layout of X and v)")
-    role = ("tp" if tp else "slices" if scale.feature_shard
-            else "examples")
     return engine.StackedMeshCollectives(
         pods=pods, lanes=_worker_count(mesh, scale) // pods,
         compress_pod=scale.compress_pod, model=model, model_role=role)
 
 
-def make_dense_epoch(scale: GLMScale, mesh: StackedMesh,
-                     obj: Objective = LOGISTIC):
-    """-> epoch fn over the global arrays: (X, y, a, v, epoch) -> (X, y,
-    a, v), as the reference's shard_map program takes and returns them.
+def _model_lanes(mesh: Mesh, scale: GLMScale) -> Optional[int]:
+    """The solver's `model_lanes`: the model axis's size when it carries
+    slices of v (feature_shard), else None."""
+    return mesh.shape["model"] if scale.feature_shard else None
 
-    X (d, n), y/a (n,), v (d,); columns are dealt to the example shards
-    in (pod, data[, model]) order, and the returned X holds the re-dealt
-    columns.  Arrays are moved to the mesh's device.  With
-    feature_shard the model lanes split the features (tensor
-    parallelism; d must be a multiple of the model axis): "torch" sums
-    the lanes' partials per bucket in lane order, "kernel" (and "auto"
-    on the card) launches the dense kernel on each worker's whole tile.
+
+def make_dense_epoch(scale: GLMScale, mesh: Mesh,
+                     obj: Objective = LOGISTIC):
+    """-> epoch fn (X, y, a, v, epoch) -> (X, y, a, v), as the
+    reference's shard_map program takes and returns them.
+
+    On a stacked mesh the arrays are global: X (d, n), y/a (n,), v (d,);
+    columns are dealt to the example shards in (pod, data[, model])
+    order, and the returned X holds the re-dealt columns.  On a process
+    mesh they are this rank's shards (`glm_input_specs`, `local_shard`):
+    X (d, n_local), y/a (n_local,), v (d,) replicated.  Arrays are moved
+    to the mesh's device.  With feature_shard (stacked only) the model
+    lanes split the features (tensor parallelism; d must be a multiple
+    of the model axis): "torch" sums the lanes' partials per bucket in
+    lane order, "kernel" (and "auto" on the card) launches the dense
+    kernel on each worker's whole tile.
     """
     W = _worker_count(mesh, scale)
     spec = scale.engine_config(mesh)
     coll = _collectives(mesh, scale)
-    model_lanes = mesh.shape["model"] if coll.model_role == "tp" else None
     dev = mesh.device
 
     def epoch_fn(X, y, a, v, epoch):
@@ -189,30 +223,30 @@ def make_dense_epoch(scale: GLMScale, mesh: StackedMesh,
         blk, y, a, v = engine.sharded_epoch(
             obj, spec, coll, blk, y.reshape(P, K, -1), a.reshape(P, K, -1),
             v, int(epoch), lam=scale.lam, n_total=scale.n, workers=W,
-            model_lanes=model_lanes, device=dev)
-        return (blk.X.permute(2, 0, 1, 3).reshape(d, n), y.reshape(n),
-                a.reshape(n), v)
+            model_lanes=_model_lanes(mesh, scale), device=dev)
+        X = blk.X.permute(2, 0, 1, 3).reshape(d, n)
+        return X, y.reshape(n), a.reshape(n), v
 
     return epoch_fn
 
 
-def make_sparse_epoch(scale: GLMScale, mesh: StackedMesh,
+def make_sparse_epoch(scale: GLMScale, mesh: Mesh,
                       obj: Objective = LOGISTIC):
-    """-> epoch fn over the global arrays: (idx, val, y, a, v, epoch) ->
-    (idx, val, y, a, v), as the reference's shard_map program takes and
-    returns them.
+    """-> epoch fn (idx, val, y, a, v, epoch) -> (idx, val, y, a, v), as
+    the reference's shard_map program takes and returns them.
 
-    idx/val (n, nnz) padded-CSR rows, y/a (n,), v (d,); rows are dealt
-    to the example shards in (pod, data[, model]) order, and the
-    returned rows are the re-dealt ones.  Arrays are moved to the mesh's
-    device.  With feature_shard, the model lanes own slices of v and
-    the local solver is the feature-sharded one ("kernel": the CUDA
-    kernel pair; "torch": the masked scan).
+    On a stacked mesh the arrays are global: idx/val (n, nnz) padded-CSR
+    rows, y/a (n,), v (d,); rows are dealt to the example shards in
+    (pod, data[, model]) order, and the returned rows are the re-dealt
+    ones.  On a process mesh they are this rank's shards: idx/val
+    (n_local, nnz), y/a (n_local,), v (d,) replicated.  Arrays are moved
+    to the mesh's device.  With feature_shard (stacked only), the model
+    lanes own slices of v and the local solver is the feature-sharded
+    one ("kernel": the CUDA kernel pair; "torch": the masked scan).
     """
     W = _worker_count(mesh, scale)
     spec = scale.engine_config(mesh)
     coll = _collectives(mesh, scale)
-    model_lanes = mesh.shape["model"] if scale.feature_shard else None
     dev = mesh.device
 
     def epoch_fn(idx, val, y, a, v, epoch):
@@ -229,11 +263,93 @@ def make_sparse_epoch(scale: GLMScale, mesh: StackedMesh,
         blk, y, a, v = engine.sharded_epoch(
             obj, spec, coll, blk, y.reshape(P, K, -1), a.reshape(P, K, -1),
             v, int(epoch), lam=scale.lam, n_total=scale.n, workers=W,
-            model_lanes=model_lanes, device=dev)
+            model_lanes=_model_lanes(mesh, scale), device=dev)
         return (blk.idx.reshape(n, nnz), blk.val.reshape(n, nnz),
                 y.reshape(n), a.reshape(n), v)
 
     return epoch_fn
+
+
+# ---------------------------------------------------------------------------
+# The shard_map boundary on a process mesh
+# ---------------------------------------------------------------------------
+
+
+class InputSpec(NamedTuple):
+    """One input of an epoch program: its GLOBAL shape and dtype, and
+    its partition, one entry a dimension (None: replicated; a tuple of
+    axis names: split over them, the first the major, as a
+    PartitionSpec reads)."""
+    shape: tuple
+    dtype: torch.dtype
+    partition: tuple
+
+
+def glm_input_specs(scale: GLMScale, mesh: Mesh) -> tuple[InputSpec, ...]:
+    """The epoch program's inputs, in its argument order: the
+    reference's `glm_input_specs` with (global shape, dtype, partition)
+    in place of ShapeDtypeStructs."""
+    ex_axes, _, _, tp = _axes(mesh, scale)
+    ex, f32 = (ex_axes,), torch.float32
+    epoch = InputSpec((), torch.int32, ())
+    if scale.kind == "sparse":
+        rows = (ex_axes, None)
+        return (InputSpec((scale.n, scale.nnz), torch.int32, rows),
+                InputSpec((scale.n, scale.nnz), f32, rows),
+                InputSpec((scale.n,), f32, ex), InputSpec((scale.n,), f32, ex),
+                InputSpec((scale.d,), f32, (None,)), epoch)
+    x_part = (("model",) if tp else None, ex_axes)
+    return (InputSpec((scale.d, scale.n), f32, x_part),
+            InputSpec((scale.n,), f32, ex), InputSpec((scale.n,), f32, ex),
+            InputSpec((scale.d,), f32, (("model",),) if tp else (None,)),
+            epoch)
+
+
+def _block(part, coords: dict, shape: dict) -> tuple[int, int]:
+    """(block index, block count) of a dimension split over `part`."""
+    if part is None:
+        return 0, 1
+    idx = 0
+    for a in part:
+        idx = idx * shape[a] + coords[a]
+    return idx, math.prod(shape[a] for a in part)
+
+
+def _slices(spec: InputSpec, coords: dict, shape: dict) -> tuple:
+    out = []
+    for size, part in zip(spec.shape, spec.partition):
+        i, k = _block(part, coords, shape)
+        if size % k:
+            raise ValueError(f"dimension {size} does not split in {k}")
+        out.append(slice(i * (size // k), (i + 1) * (size // k)))
+    return tuple(out)
+
+
+def local_shard(x, spec: InputSpec, mesh: DistMesh) -> torch.Tensor:
+    """This rank's shard of a global array, by its partition (a copy on
+    the mesh's device)."""
+    coords = dict(zip(mesh.axis_names, mesh.coords))
+    x = torch.as_tensor(x)
+    return x[_slices(spec, coords, mesh.shape)].to(
+        mesh.device, spec.dtype, copy=True).contiguous()
+
+
+def assemble_shards(shards: Sequence, spec: InputSpec,
+                    shape: dict) -> torch.Tensor:
+    """Every rank's shard (in rank order) -> the global array (on the
+    first shard's device); where the partition replicates a block, the
+    lowest rank's copy is taken."""
+    first = torch.as_tensor(shards[0])
+    out = torch.empty(spec.shape, dtype=first.dtype, device=first.device)
+    done = set()
+    for r, t in enumerate(shards):
+        coords = dict(zip(("pod", "data", "model"), rank_coords(r, shape)))
+        sl = _slices(spec, coords, shape)
+        key = tuple((s.start, s.stop) for s in sl)
+        if key not in done:
+            out[sl] = torch.as_tensor(t).to(out.device)
+            done.add(key)
+    return out
 
 
 def scale_for_dataset(name: str, *, device="cuda",
@@ -312,7 +428,7 @@ def scale_for_estimator(est, **overrides) -> GLMScale:
     return GLMScale(**kw)
 
 
-def estimator_epoch(est, mesh: StackedMesh, **overrides):
+def estimator_epoch(est, mesh: Mesh, **overrides):
     """Put a fitted `repro_torch.api` estimator's epoch on a mesh.
 
     Returns ``(epoch_fn, scale)``: `epoch_fn` is `make_dense_epoch`'s or
@@ -332,3 +448,134 @@ def estimator_epoch(est, mesh: StackedMesh, **overrides):
         getattr(est, "session_", est), "obj", LOGISTIC)
     make = make_sparse_epoch if scale.kind == "sparse" else make_dense_epoch
     return make(scale, mesh, obj=obj), scale
+
+
+# ---------------------------------------------------------------------------
+# Streamed epochs on the mesh
+# ---------------------------------------------------------------------------
+
+
+def _as_mesh_feed(source, *, model_lanes, d_loc, verify, width,
+                  device) -> engine.MeshChunkFeed:
+    """Any streamable source -> a mesh chunk feed.
+
+    Takes a `TileCache`, a `TileFeed` (its verify flag carries over), an
+    `ArrayFeed`, a ready `MeshChunkFeed`, or a `ResilientChunkFeed`
+    wrapping one of those: then the INNER feed is upgraded in place, so
+    retry, quarantine and rebuild keep guarding the mesh path (`rebind`
+    keeps the mesh feed across a cache rebuild).
+    """
+    from repro_torch.data.cache import ArrayFeed, TileCache, TileFeed
+    from repro_torch.resilience.feed import ResilientChunkFeed
+
+    def wrap(src, v):
+        return engine.MeshChunkFeed(src, model_lanes=model_lanes,
+                                    d_loc=d_loc, verify=v, width=width,
+                                    device=device)
+
+    if isinstance(source, engine.MeshChunkFeed):
+        return source
+    if isinstance(source, ResilientChunkFeed):
+        inner = source.feed
+        if not isinstance(inner, engine.MeshChunkFeed):
+            if isinstance(inner, TileFeed):
+                source.feed = wrap(inner.cache, verify or inner.verify)
+            else:
+                source.feed = _as_mesh_feed(
+                    inner, model_lanes=model_lanes, d_loc=d_loc,
+                    verify=verify, width=width, device=device)
+        return source
+    if isinstance(source, (TileCache, ArrayFeed)):
+        return wrap(source, verify)
+    if isinstance(source, TileFeed):
+        return wrap(source.cache, verify or source.verify)
+    raise TypeError(
+        f"cannot stream a {type(source).__name__} onto a mesh: pass a "
+        f"TileCache, TileFeed, ArrayFeed, MeshChunkFeed, or a "
+        f"ResilientChunkFeed wrapping one")
+
+
+def make_streamed_epoch_mesh(scale: GLMScale, mesh: Mesh, source,
+                             obj: Objective = LOGISTIC, *, journal=None,
+                             verify: bool = False,
+                             width: Optional[int] = None,
+                             damp: float = 1.0):
+    """-> epoch_fn(alpha, v, epoch, *, stats=None) streaming `source`
+    onto the mesh.
+
+    The mesh twin of `engine.make_streamed_epoch`: the SAME chunk loop
+    (`run_epoch_streamed`: the side stream, the journal hooks, stats)
+    drives the mesh's collectives, with `engine.MeshSchedule` replaying
+    the resident mesh's re-deals and visit orders on the host and
+    `engine.MeshChunkFeed` landing each chunk in the mesh's layout.
+    The result is bitwise resident training on the same mesh
+    (`make_dense_epoch`/`make_sparse_epoch`, their alpha mapped back to
+    global order through `MeshSchedule.layout`), while only a
+    `chunks`-th of the examples is ever on the device.
+
+    alpha (n,) and v (d,) are global on either mesh.  On a process mesh
+    each rank streams only its own buckets and the driver all-gathers
+    alpha's columns at the epoch's end (`MeshStreamDriver.share_alpha`),
+    so every rank holds what the stacked mesh holds; a journal there is
+    not ported (ROADMAP A11b).  Feature-sharded sparse scales stream
+    slice-compacted per-lane feeds (`TileCache.slice_gather`): each
+    model lane ships only its slice's entries, and the step reassembles
+    exact rows on the device.
+
+    ``journal`` threads an `EpochJournal` (chunk-cursor crash resume,
+    bitwise); ``damp`` the health guard's dv_scale multiplier;
+    ``verify``/``width`` go to the feed.  The closure exposes ``.feed``
+    and ``.schedule``.
+    """
+    from repro_torch.kernels import ops as kops
+    ex_axes, _, _, tp = _axes(mesh, scale)
+    W = _worker_count(mesh, scale)
+    spec = scale.engine_config(mesh)
+    coll = _collectives(mesh, scale)
+    dist_mesh = isinstance(mesh, DistMesh)
+    if dist_mesh and journal is not None:
+        raise NotImplementedError(
+            "a journal on a process mesh is not ported yet (ROADMAP A11b)")
+    sparse = scale.kind == "sparse"
+    sliced = sparse and scale.feature_shard
+    model_lanes = _model_lanes(mesh, scale)
+    d_loc = kops.sparse_slice_width(scale.d, model_lanes) if sliced else None
+    feed = _as_mesh_feed(source, model_lanes=model_lanes if sliced else None,
+                         d_loc=d_loc, verify=verify, width=width,
+                         device=mesh.device)
+    mesh_feed = getattr(feed, "feed", feed)     # inside a ResilientChunkFeed
+    if (feed.n, feed.bucket, mesh_feed.nnz) != (
+            scale.n, scale.bucket, scale.nnz if sparse else 0):
+        raise ValueError(
+            f"feed shape mismatch: feed has n={feed.n} bucket="
+            f"{feed.bucket} nnz={mesh_feed.nnz}, scale wants n={scale.n} "
+            f"bucket={scale.bucket} nnz={scale.nnz if sparse else 0}")
+    solver = engine.make_local_solver(
+        scale.local_solver, obj, scale.lam * scale.n, spec.sigma_prime(W),
+        bucket=scale.bucket, sparse=sparse, model_lanes=model_lanes,
+        device=mesh.device)
+    dv_scale = (1.0 / W if scale.aggregation == "averaging"
+                else 1.0) * damp
+    step = engine.make_mesh_streamed_step(
+        coll, solver, spec.algo, nnz=scale.nnz if sliced else None,
+        dv_scale=dv_scale)
+    sched = engine.MeshSchedule(
+        scale.n // scale.bucket, pods=mesh.shape["pod"],
+        data=mesh.shape["data"], model=mesh.shape["model"],
+        model_in_lanes=("model" in ex_axes), seed=scale.seed,
+        redeal=(scale.partition != "static"),
+        redeal_frac=scale.redeal_frac)
+    plan = sched.worker(mesh.coords[0], coll.lane) if dist_mesh else sched
+    driver = engine.MeshStreamDriver(coll, sched, scale.bucket)
+
+    def epoch_fn(alpha, v, epoch, *, stats=None):
+        alpha, v = (torch.as_tensor(t, dtype=torch.float32,
+                                    device=mesh.device) for t in (alpha, v))
+        alpha, v = engine.run_epoch_streamed(
+            driver, feed, step, plan, spec.algo, alpha, v, epoch,
+            journal=journal, stats=stats)
+        return driver.share_alpha(alpha, epoch), v
+
+    epoch_fn.feed = feed
+    epoch_fn.schedule = sched
+    return epoch_fn

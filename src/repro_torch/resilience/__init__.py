@@ -19,8 +19,9 @@ Four pillars, each opt-in and free when unused:
                           every recovery path, with a JSON event log
                           (``$REPRO_FAULT_LOG``).
 
-The mesh half of the reference's runtime (`ResilientChunkFeed`'s
-rebind of a mesh feed) comes with the multi-GPU path.
+On a mesh, `ResilientChunkFeed` rebinds a rebuilt cache into its
+`engine.MeshChunkFeed`, so the mesh layout and the compaction width
+survive a quarantine.
 """
 from .faultinject import (FaultInjectedIOError, FaultInjector, FaultyFeed,
                           KernelBuildError, SimulatedCrash, log_event,

@@ -137,10 +137,17 @@ class ResilientChunkFeed:
                 "recover.quarantine", path=str(p), array=err.array,
                 tile=err.tile, offset=err.offset)
         new = self.rebuild()
-        if hasattr(new, "feed"):          # TileCache -> its ChunkFeed
-            new = new.feed(verify=getattr(self.feed, "verify", False),
-                           device=self.device)
-        self.feed = new
+        if hasattr(self.feed, "rebind") and not hasattr(new, "fetch"):
+            # a mesh feed (engine.MeshChunkFeed) survives the rebuild:
+            # only its backing cache is swapped, so the mesh layout and
+            # the compaction width stay (a plain TileFeed would not fit
+            # the mesh step)
+            self.feed.rebind(new)
+        else:
+            if hasattr(new, "feed"):      # TileCache -> its ChunkFeed
+                new = new.feed(verify=getattr(self.feed, "verify", False),
+                               device=self.device)
+            self.feed = new
         faultinject.log_event("recover.rebuilt", array=err.array,
                               tile=err.tile)
 

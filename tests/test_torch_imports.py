@@ -2,7 +2,8 @@
 
 Parses every module of `src/repro_torch/` (the `launch/` package
 included), `chip_smoke.py`, `tools/torch_breakdown.py`,
-`tools/same_timer.py` and `tools/streamed_ab.py` with `ast`
+`tools/same_timer.py`, `tools/streamed_ab.py` and
+`tools/mesh_dist_rank.py` (the process mesh's rank program) with `ast`
 and fails on any import of `jax` or `repro` (other than `repro_torch`),
 at any depth: inside functions too.
 """
@@ -16,7 +17,8 @@ pytest.importorskip("torch")
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tools" / "torch_breakdown.py",
-    ROOT / "tools" / "same_timer.py", ROOT / "tools" / "streamed_ab.py"]
+    ROOT / "tools" / "same_timer.py", ROOT / "tools" / "streamed_ab.py",
+    ROOT / "tools" / "mesh_dist_rank.py"]
 
 
 def _forbidden(mod: str) -> bool:
@@ -69,7 +71,10 @@ def test_new_modules_are_checked():
             "src/repro_torch/resilience/faultinject.py",
             "src/repro_torch/resilience/journal.py",
             "src/repro_torch/resilience/feed.py",
-            "src/repro_torch/resilience/health.py"} <= names
+            "src/repro_torch/resilience/health.py",
+            "src/repro_torch/data/cache.py",
+            "src/repro_torch/core/engine.py",
+            "tools/mesh_dist_rank.py"} <= names
 
 
 def test_every_kernel_source_is_registered():

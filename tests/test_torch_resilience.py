@@ -45,6 +45,7 @@ from repro_torch.core.trainer import StreamedGLMTrainer      # noqa: E402
 from repro_torch.data import (make_dense_classification,     # noqa: E402
                               make_sparse_classification, registry)
 from repro_torch.data.cache import TileCorruptionError       # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh             # noqa: E402
 from repro_torch.data.formats import \
     raise_on_duplicate_nonzeros                               # noqa: E402
 from repro_torch.resilience import (EpochJournal,             # noqa: E402
@@ -737,3 +738,74 @@ def test_journal_threads_into_the_streamed_epoch(tmp_path):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert journal.load_inflight(1, s.alpha, s.v.expand(2, -1),
                                  s.v.expand(2, -1), **CPU) is None
+
+
+# -- the mesh-streamed path: the same guarantees on a stacked mesh ----------
+
+MESH_CFG = EngineConfig.make(pods=1, lanes=2, bucket=8, chunks=4,
+                             partition="alltoall", deterministic=True,
+                             local_solver="torch", compress_pod=False)
+MESH_CASES = {
+    # kind: (cache, EngineConfig, (pod, data, model))
+    "dense": ("dense", MESH_CFG, (1, 2, 1)),
+    "sparse-sharded": ("sparse", dataclasses.replace(
+        MESH_CFG, deployment=dataclasses.replace(MESH_CFG.deployment,
+                                                 feature_shard=True)),
+        (1, 2, 2)),
+}
+
+
+def _mesh_kw(case):
+    _, cfg, (pod, data, model) = MESH_CASES[case]
+    return dict(cfg=cfg, lam=1e-3, objective="logistic",
+                mesh=make_host_mesh(pod=pod, data=data, model=model, **CPU),
+                **CPU)
+
+
+def test_kill_and_resume_mesh_streamed_bitwise(tmp_path):
+    """A kill between chunk 1 and 2 of epoch 1 on the MESH-streamed path:
+    a fresh Session resumes from the journal at the chunk boundary and
+    ends bitwise the uninterrupted run (`MeshSchedule` is pure in (seed,
+    epoch), so the resumed epoch replays the chunks not yet applied)."""
+    mk = _maker("dense", tmp_path / "c")
+    kw = dict(_mesh_kw("dense"), streamed=True)
+    ref = Session(mk(), **kw)
+    ref.fit(until=EPOCHS, tol=0)
+    jd = tmp_path / "journal"
+    with pytest.raises(SimulatedCrash):
+        Session(mk(), **kw, journal_dir=jd,
+                faults=FaultInjector("kill@e1c2")).fit(until=EPOCHS, tol=0)
+    s2 = Session(mk(), **kw, journal_dir=jd)
+    assert s2.epochs_done == 1                 # epoch 0 was committed
+    stats = {}
+    s2.epoch(stats=stats)
+    assert stats["chunks"] == MESH_CFG.algo.chunks - 2
+    s2.fit(until=EPOCHS, tol=0)
+    _equal(s2, ref)
+    assert isinstance(s2.mesh_feed, engine.MeshChunkFeed)
+
+
+@pytest.mark.parametrize("case", list(MESH_CASES))
+def test_corruption_quarantine_rebuild_mesh_streamed(tmp_path, case):
+    """A `ResilientChunkFeed` around the mesh pipeline keeps its
+    quarantine and rebuild: the corrupt cache is swapped out through
+    `MeshChunkFeed.rebind`, so the mesh feed (its layout, and for
+    feature-sharded data its compaction width) survives the rebuild, and
+    training ends bitwise the clean run."""
+    kind = MESH_CASES[case][0]
+    mk = _maker(kind, tmp_path)
+    kw = _mesh_kw(case)
+    ref = Session(mk(), streamed=True, **kw)
+    ref.fit(until=EPOCHS, tol=0)
+    width = ref.mesh_feed.width
+    FaultInjector("flip-tile@t5", seed=7).apply_disk_faults(mk().path)
+    feed = ResilientChunkFeed(mk().feed(verify=True, **CPU), rebuild=mk,
+                              sleep=lambda t: None)
+    s = Session(feed, **kw)
+    s.fit(until=EPOCHS, tol=0)
+    _equal(s, ref)
+    assert list(tmp_path.glob(".quarantine.*"))
+    assert isinstance(feed.feed, engine.MeshChunkFeed)
+    assert feed.feed.verify and feed.feed.width == width
+    assert feed.feed.sliced == (case == "sparse-sharded")
+    mk().verify_tiles()                        # the rebuilt cache is clean
