@@ -32,7 +32,9 @@ a seeded `FaultInjector`.
 streams the chunks onto the mesh (`launch.glm.make_streamed_epoch_mesh`),
 so it needs a streamed source; the epochs are bitwise resident training
 on the same mesh, and on a process mesh every rank's `alpha` and `v`
-are the stacked mesh's.
+are the stacked mesh's, in every role of the model axis (a feature-
+sharded config runs one model lane a rank).  There each rank journals
+under ``journal_dir/rank{r}`` (`resilience.MeshJournal`).
 
 Examples are PADDED (x=0, y=+1 — inert, a zero row never moves v) up
 to the multiple the chosen topology needs; ``n_examples`` records the
@@ -61,7 +63,8 @@ from repro_torch.core.trainer import FitResult
 from repro_torch.data.cache import ArrayFeed, pad_examples
 from repro_torch.device import resolve_device, same_device
 from repro_torch.resilience import (EpochJournal, FaultInjector,
-                                    HealthMonitor, HealthPolicy)
+                                    HealthMonitor, HealthPolicy,
+                                    MeshJournal)
 
 Tensor = torch.Tensor
 
@@ -149,6 +152,10 @@ class Session:
         self._journal = (EpochJournal(journal_dir, every=journal_every,
                                       injector=self._faults)
                          if journal_dir is not None else None)
+        if self._journal is not None and hasattr(mesh, "rank"):
+            # a process mesh: one journal a rank, the world agreeing on
+            # the cursor it resumes at
+            self._journal = MeshJournal.on_mesh(self._journal, mesh)
 
         # `Session((X, y))` / `Session(((idx, val), y))` sugar — only
         # when the second element is labels-shaped (1-D)

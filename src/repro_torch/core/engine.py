@@ -14,9 +14,10 @@ hierarchical aggregation — is a single bulk-synchronous program:
     worker in one launch; reductions are explicit left-to-right adds
     over the lane and pod axes.  `StackedMeshCollectives` lays a
     (pod, data, model) mesh out the same way; `MeshCollectives` runs it
-    across processes, one worker a process, over `torch.distributed`
-    (all-to-all re-deal, all-gathers summed in rank order), bitwise the
-    stacked mesh when ordered.
+    across processes, one worker (or, when the model axis carries
+    slices, one model lane of one) a process, over `torch.distributed`
+    (all-to-all re-deal, all-gathers summed in rank order, the model
+    lanes' per-bucket exchange), bitwise the stacked mesh when ordered.
   * `LocalSolver` — how the workers solve their chunks: the plain
     PyTorch versions (`"torch"`, `core.sdca`) or the CUDA kernels
     (`"kernel"`, `kernels.ops`).  `"auto"` picks the kernel on a CUDA
@@ -132,13 +133,16 @@ def _raise_misfit(why, path):
 
 
 def sparse_sharded_kernel_solver(obj: Objective, lam_n: float, sig: float,
-                                 bucket: int, model_lanes: int
-                                 ) -> LocalSolver:
+                                 bucket: int, model_lanes: int,
+                                 lane: Optional[int] = None,
+                                 exchange=None) -> LocalSolver:
     """The feature-sharded CUDA kernels (`kops.sdca_sparse_sharded_subepoch`):
-    every (worker, lane) block in one launch per bucket.  dv (W, M, d)
-    has support only on each lane's slice; the duals are lane 0's copy
-    (every lane computes the same bits), as the mesh reads them.  A
-    shape the kernels cannot take raises with its misfit."""
+    every (worker, lane) block in one launch per bucket, or with
+    ``lane`` (a process mesh) that lane's blocks alone, the working sets
+    traded by ``exchange``.  dv (W, Mh, d) has support only on each held
+    lane's slice; the duals are the first held lane's copy (every lane
+    computes the same bits), as the mesh reads them.  A shape the
+    kernels cannot take raises with its misfit."""
     from repro_torch.core import planner
     from repro_torch.kernels import ops as kops
 
@@ -151,8 +155,33 @@ def sparse_sharded_kernel_solver(obj: Objective, lam_n: float, sig: float,
             _raise_misfit(why, "feature-sharded sparse")
         a_lanes, dv = kops.sdca_sparse_sharded_subepoch(
             obj, idx, val, y, a, v, lam_n, sig, bucket=bucket,
-            model_lanes=model_lanes, source="resident arrays")
+            model_lanes=model_lanes, lane=lane, exchange=exchange,
+            source="resident arrays")
         return a_lanes[:, 0], dv
+    return solve
+
+
+def dense_tp_kernel_solver(obj: Objective, lam_n: float, sig: float,
+                           bucket: int, model_lanes: int,
+                           exchange=None) -> LocalSolver:
+    """The dense tensor-parallel pair (`kops.sdca_bucket_tp_subepoch`):
+    per bucket the held lanes' [m0 | G] partials, their sum over the
+    model lanes, the recursion.  Without ``exchange`` every lane is held
+    (the stacked twin of a process mesh: each worker's tile its
+    `model_lanes` lanes' slices stacked, summed in lane order); with it
+    one lane is held and ``exchange`` sums over 'model'.  A shape the
+    pair cannot take raises with its misfit."""
+    from repro_torch.core import planner
+    from repro_torch.kernels import ops as kops
+
+    def solve(X, y, a, v):
+        why = planner.route_dense(X.shape[-2], X.shape[-1], bucket)
+        if why is not None:
+            _raise_misfit(why, "dense tensor-parallel")
+        return kops.sdca_bucket_tp_subepoch(
+            obj, X, y, a, v, lam_n, sig, bucket=bucket,
+            model_lanes=model_lanes if exchange is None else 1,
+            reduce=exchange, source="resident arrays")
     return solve
 
 
@@ -181,6 +210,8 @@ def dense_kernel_solver(obj: Objective, lam_n: float, sig: float,
 def make_local_solver(kind: str, obj: Objective, lam_n: float, sig: float,
                       *, bucket: int = 1, sparse: bool = False,
                       model_lanes: Optional[int] = None,
+                      lane: Optional[int] = None, exchange=None,
+                      split_tp: bool = False,
                       device="cuda") -> LocalSolver:
     """Resolve an `AlgoConfig.local_solver` name to a LocalSolver.
 
@@ -202,6 +233,20 @@ def make_local_solver(kind: str, obj: Objective, lam_n: float, sig: float,
     the kernels' own predicates, which ``$REPRO_PLAN`` never changes:
     the planner repairs an open geometry before anything launches, and
     a fixed geometry that misfits raises here.
+
+    On a process mesh a solver holds ONE model lane: ``lane`` is it and
+    ``exchange`` the collectives' per-bucket trade over 'model'
+    (`MeshCollectives.model_exchange`).  Sparse: "kernel" runs B3 on the
+    lane's slice, ``exchange`` (the working sets' all-gather), the
+    owner-select and B4 on the lane; "torch" the masked scan, which
+    needs no exchange; dv (W, 1, d).  Dense TP: the tile and v hold the
+    lane's d/M rows, and ``exchange`` sums the packed partials over the
+    lanes in lane order: "torch" in `sdca.dense_tp_bucket_pass`'s
+    ``reduce`` hook, "kernel" between the split pair's two launches
+    (`dense_tp_kernel_solver`).  ``split_tp`` puts the split pair on a
+    stacked mesh's TP workers (every lane held, the lane-ordered sum):
+    the process mesh's stacked twin; the stacked mesh's own "kernel" TP
+    route stays the whole-tile B1.
     """
     from repro_torch.core import planner
     from repro_torch.kernels import ops as kops
@@ -222,19 +267,21 @@ def make_local_solver(kind: str, obj: Objective, lam_n: float, sig: float,
     if sparse and model_lanes is not None:
         if kind == "kernel":
             return sparse_sharded_kernel_solver(obj, lam_n, sig, bucket,
-                                                model_lanes)
+                                                model_lanes, lane, exchange)
+        held = (torch.arange(model_lanes, device=device) if lane is None
+                else torch.tensor([lane], device=device))
 
         def solve(data, y, a, v):
             # the kernels' plain twin on the same layout: the full scan,
-            # then each lane's dv masked to its slice (without the mask
-            # the ordered model-axis sum would count dv M times)
+            # then each held lane's dv masked to its slice (without the
+            # mask the ordered model-axis sum would count dv M times)
             idx, val = data
             a_new, dv = sdca.sparse_local_subepoch(obj, idx, val, y, a, v,
                                                    lam_t, sig_t)
             d = v.shape[-1]
-            lane = torch.arange(d, device=v.device) \
+            owner = torch.arange(d, device=v.device) \
                 // kops.sparse_slice_width(d, model_lanes)
-            own = lane == torch.arange(model_lanes, device=v.device)[:, None]
+            own = owner == held[:, None]
             return a_new, torch.where(own, dv[:, None, :],
                                       torch.zeros((), dtype=dv.dtype,
                                                   device=dv.device))
@@ -260,10 +307,16 @@ def make_local_solver(kind: str, obj: Objective, lam_n: float, sig: float,
         return solve
 
     if kind == "torch":
+        lanes = model_lanes if lane is None else 1
+
         def solve(X, y, a, v):
             return sdca.dense_local_subepoch(obj, X, y, a, v, lam_t, sig_t,
-                                             bucket, model_lanes=model_lanes)
+                                             bucket, model_lanes=lanes,
+                                             reduce=exchange)
         return solve
+    if model_lanes is not None and (lane is not None or split_tp):
+        return dense_tp_kernel_solver(obj, lam_n, sig, bucket, model_lanes,
+                                      exchange)
     return dense_kernel_solver(obj, lam_n, sig, bucket)
 
 
@@ -406,6 +459,12 @@ class SimCollectives:
             return v.expand((self.pods,) + tuple(v.shape))
         return v
 
+    def model_exchange(self):
+        """-> (model lane, per-bucket exchange) of a solver that holds
+        one model lane (a process mesh); stacked lanes hold them all:
+        (None, None)."""
+        return None, None
+
     def _wire_slices(self) -> int:
         """How many slices of v each carry their own int8 scale."""
         return 1
@@ -495,40 +554,61 @@ class StackedMeshCollectives(SimCollectives):
 @dataclasses.dataclass(frozen=True, eq=False)
 class MeshCollectives(SimCollectives):
     """Real collectives over a `launch.mesh.DistMesh`: this process is ONE
-    worker of the (pod, data, model) mesh, and its tensors carry the
-    stacked worker shape (1, 1) (``pods`` and ``lanes`` stay 1), so
-    `run_epoch`, `chunk_inputs` and the solvers run unchanged, one
-    block a launch.
+    worker of the (pod, data, model) mesh (one model lane of one when
+    the model axis carries slices), and its tensors carry the stacked
+    worker shape (1, 1) (``pods`` and ``lanes`` stay 1), so `run_epoch`,
+    `chunk_inputs` and the solvers run unchanged, one block a launch.
 
-    The reference's `MeshCollectives` with the model axis carrying
-    examples (the only role ported across processes; `launch.glm`
-    raises for the others): worker keys from this rank's pod and its
-    data-major lane; the re-deal an `all_to_all_single` over `data`
-    within the rank's (pod, model) group; the lane sum over `data`, then
-    `model`, as an `all_gather` summed in rank order (``deterministic``,
-    bitwise `StackedMeshCollectives`), an `all_reduce` otherwise, or
-    with ``compress`` the int8 two-phase `q_psum` (an `all_to_all` of
-    int8 shards, `all_gather`s of the scales and the reduced shards) in
-    the stacked `q_psum`'s rounding order; the pod reduce in the same
-    three forms, int8 on the wire under ``compress_pod``.
+    The reference's `MeshCollectives` in every role of the model axis
+    (``model_role``, as `StackedMeshCollectives`'s): "examples", more
+    example lanes; "slices", feature-sharded sparse data, each rank one
+    lane of v's slices; "tp", dense tensor parallelism, each rank d/M
+    rows of X and of v.  Worker keys come from this rank's pod and its
+    data-major example lane (`lane`: under "slices" and "tp" the data
+    index alone, so a worker's model lanes draw one stream, deal the same
+    columns and hold the same rows); the re-deal is an
+    `all_to_all_single` over `data` within the rank's (pod, model)
+    group; the lane sum runs over `data`, then `model` ("tp": `data`
+    only, on the rank's slice), as an `all_gather` summed in rank order
+    (``deterministic``, bitwise `StackedMeshCollectives`), an
+    `all_reduce` otherwise, or with ``compress`` the int8 two-phase
+    `q_psum` (an `all_to_all` of int8 shards, `all_gather`s of the
+    scales and the reduced shards) in the stacked `q_psum`'s rounding
+    order; the pod reduce in the same three forms, int8 on the wire
+    under ``compress_pod`` (one scale for the rank's v: under "tp" its
+    slice, as on the stacked mesh).  Per bucket the model lanes
+    exchange what the solver hands `model_exchange`'s callable: the
+    working sets under "slices" (`gather_model`), the packed [m0 | G]
+    partials under "tp" (`model_sum`).
 
     Under gloo on a CUDA device every collective (`all_gather`,
     `all_to_all_single`, `all_reduce`) stages explicitly: its input is
     copied to host memory, the op runs there, and the result is copied
-    back to the rank's device.  The kernels always run on the device.
+    back to the rank's device; the per-bucket exchange goes through one
+    pinned buffer each way.  The kernels always run on the device.
     """
     mesh: object = None
     deterministic: bool = False
+    model_role: str = "examples"
+    _pinned: dict = dataclasses.field(default_factory=dict, repr=False)
 
     def __post_init__(self):
         if self.mesh is None:
             raise ValueError("MeshCollectives needs a DistMesh")
+        if self.model_role not in ("examples", "slices", "tp"):
+            raise ValueError(f"unknown model_role {self.model_role!r}")
 
     @property
     def lane(self) -> int:
-        """This rank's example lane, counted data-major."""
+        """This rank's example lane, counted data-major over the example
+        axes (the data index alone when the model axis carries slices)."""
         _, d, m = self.mesh.coords
-        return d * self.mesh.model + m
+        return d * self.mesh.model + m if self.model_role == "examples" \
+            else d
+
+    @property
+    def model_lane(self) -> int:
+        return self.mesh.coords[2]
 
     def worker_keys(self, seed: int, epoch: int) -> np.ndarray:
         base = prng.fold_in(prng.PRNGKey(seed), int(epoch))
@@ -561,6 +641,55 @@ class MeshCollectives(SimCollectives):
 
     def _gather_sum(self, t: Tensor, axis: str) -> Tensor:
         return _ordered_sum(torch.stack(self.gather(t, axis)), 0)
+
+    def _stacked_gather(self, t: Tensor, axis: str) -> Tensor:
+        """Every member's `t` stacked in group-rank order, (L, *t.shape),
+        on this rank's device; staged (gloo on CUDA) through one pinned
+        buffer each way, reused call after call (the copies block, so
+        the next call never overwrites a buffer still being read)."""
+        L = self.mesh.group_size(axis)
+        if L == 1:
+            return t[None]
+        if not self.mesh.stages:
+            out = torch.empty((L,) + tuple(t.shape), dtype=t.dtype,
+                              device=t.device)
+            dist.all_gather(list(out.unbind(0)), t.contiguous(),
+                            group=self.mesh.group(axis))
+            return out
+        key = (axis, tuple(t.shape), t.dtype)
+        if key not in self._pinned:
+            self._pinned[key] = (
+                torch.empty(t.shape, dtype=t.dtype, pin_memory=True),
+                torch.empty((L,) + tuple(t.shape), dtype=t.dtype,
+                            pin_memory=True))
+        src, dst = self._pinned[key]
+        src.copy_(t)
+        dist.all_gather(list(dst.unbind(0)), src,
+                        group=self.mesh.group(axis))
+        return dst.to(t.device)
+
+    def gather_model(self, t: Tensor) -> Tensor:
+        """The model lanes' `t` in lane order, (M, *t.shape): the
+        per-bucket exchange of the feature-sharded working sets."""
+        return self._stacked_gather(t, "model")
+
+    def model_sum(self, packed: Tensor) -> Tensor:
+        """(*w, 1, B, 1 + B) this lane's packed [m0 | G] partials ->
+        (*w, B, 1 + B), summed over the model lanes in lane order: the
+        tensor-parallel exchange, the adds of the stacked
+        `sdca.lane_ordered_sum`."""
+        return _ordered_sum(self._stacked_gather(packed[..., 0, :, :],
+                                                 "model"), 0)
+
+    def model_exchange(self):
+        """-> (this rank's model lane, the solver's per-bucket exchange)
+        when the model axis carries slices ("slices": `gather_model`;
+        "tp": `model_sum`), else (None, None)."""
+        if self.model_role == "slices":
+            return self.model_lane, self.gather_model
+        if self.model_role == "tp":
+            return self.model_lane, self.model_sum
+        return None, None
 
     # -- the engine's seam -------------------------------------------------
 
@@ -604,9 +733,11 @@ class MeshCollectives(SimCollectives):
 
     def lane_sum(self, dv: Tensor, compress: bool = False) -> Tensor:
         """(1, 1, d) this worker's delta -> (1, d): reduced over `data`,
-        then `model`."""
+        then `model` (under "tp" (1, 1, d/M), this lane's rows, over
+        `data` only)."""
         x = dv.reshape(-1)
-        for axis in ("data", "model"):
+        axes = ("data",) if self.model_role == "tp" else ("data", "model")
+        for axis in axes:
             if self.mesh.shape[axis] <= 1:
                 continue
             if compress:
@@ -735,7 +866,8 @@ def run_epoch(coll: SimCollectives, solver: LocalSolver, algo: AlgoConfig,
 def sharded_epoch(obj: Objective, spec: EngineConfig, coll: SimCollectives,
                   block: Block, y: Tensor, a: Tensor, v: Tensor, epoch: int,
                   *, lam: float, n_total: int, workers: int,
-                  model_lanes: Optional[int] = None, device="cuda"
+                  model_lanes: Optional[int] = None, split_tp: bool = False,
+                  device="cuda"
                   ) -> tuple[Block, Tensor, Tensor, Tensor]:
     """Epoch over a physically partitioned workload (the distributed
     layout): partition != 'static' re-deals buckets across lanes, the
@@ -744,12 +876,19 @@ def sharded_epoch(obj: Objective, spec: EngineConfig, coll: SimCollectives,
     owns a slice of v; `coll` must then be a `StackedMeshCollectives`
     with model_role "slices", whose lane sum reassembles the slices),
     and on a dense block tensor parallelism (`coll` then a
-    `StackedMeshCollectives` with model_role "tp")."""
+    `StackedMeshCollectives` with model_role "tp").  On a process mesh
+    (`MeshCollectives` in those roles) the solver holds the rank's model
+    lane and trades with the others through `coll.model_exchange`;
+    ``split_tp`` runs a stacked mesh's TP workers through the split
+    pair (`make_local_solver`)."""
     algo = spec.algo
+    lane, exchange = (coll.model_exchange() if model_lanes is not None
+                      else (None, None))
     solver = make_local_solver(
         algo.local_solver, obj, lam * n_total, spec.sigma_prime(workers),
         bucket=algo.bucket, sparse=isinstance(block, SparseBlock),
-        model_lanes=model_lanes, device=device)
+        model_lanes=model_lanes, lane=lane, exchange=exchange,
+        split_tp=split_tp, device=device)
     dv_scale = 1.0 / workers if algo.aggregation == "averaging" else 1.0
     return run_epoch(coll, solver, algo, block, y, a, v, epoch,
                      redeal=(algo.partition != "static"),
@@ -1299,6 +1438,12 @@ class MeshChunkFeed:
     (one scan over the nonzeros, or ``width=``), so every chunk has one
     shape.
 
+    On a process mesh a rank asks only for its own lane: ``lane`` m
+    ships lane m's compaction alone, (1, *wshape, rows, w), and the step
+    gathers the other lanes' over 'model' before it reassembles; for
+    dense tensor parallelism ``rows`` (lo, hi) gathers and copies only
+    the rank's feature rows, (*wshape, hi - lo, rows).
+
     ``verify=True`` crc-checks the touched tiles of a cache per fetch
     (as `TileFeed`); `rebind(cache)` swaps in a rebuilt `TileCache`
     after a quarantine, so `ResilientChunkFeed` keeps the mesh layout
@@ -1309,7 +1454,7 @@ class MeshChunkFeed:
     def __init__(self, source, *, model_lanes: Optional[int] = None,
                  d_loc: Optional[int] = None, verify: bool = False,
                  width: Optional[int] = None, nnz_multiple: int = 8,
-                 device="cuda"):
+                 lane: Optional[int] = None, rows=None, device="cuda"):
         from repro_torch.data.cache import PinnedStaging
         if hasattr(source, "meta"):                  # TileCache
             self.cache, self.host = source, None
@@ -1331,6 +1476,10 @@ class MeshChunkFeed:
             raise ValueError("slice-compacted feed needs d_loc")
         self.width = ((int(width) if width else self._scan_width())
                       if self.sliced else None)
+        self.lanes = (tuple(range(model_lanes)) if lane is None
+                      else (int(lane),)) if self.sliced else None
+        self.rows = (None if rows is None or self.sparse
+                     else (int(rows[0]), int(rows[1])))
         self.staging = PinnedStaging(device)
         self.device = self.staging.device
         self.reset_stats()
@@ -1387,7 +1536,8 @@ class MeshChunkFeed:
         kw = dict(nnz_multiple=self.nnz_multiple, positions=True,
                   width=self.width)
 
-        def lane(m):
+        def lane(h):
+            m = self.lanes[h]
             if self.cache is not None:
                 # the per-lane compaction IS slice_gather (gathered=
                 # skips re-reading the tiles for every lane)
@@ -1396,12 +1546,12 @@ class MeshChunkFeed:
             else:
                 gi, gv, gp = compact_slice_rows(*rows, m * dl, (m + 1) * dl,
                                                 **kw)
-            bufs["idx"][m], bufs["val"][m], bufs["pos"][m] = gi, gv, gp
+            bufs["idx"][h], bufs["val"][h], bufs["pos"][h] = gi, gv, gp
 
         # one thread a lane: numpy's sorts and gathers release the GIL,
         # and each lane writes only its own rows of the buffers
-        with ThreadPoolExecutor(max_workers=self.model_lanes) as ex:
-            list(ex.map(lane, range(self.model_lanes)))
+        with ThreadPoolExecutor(max_workers=len(self.lanes)) as ex:
+            list(ex.map(lane, range(len(self.lanes))))
         bufs["y"][...] = y
 
     def fetch(self, bids: np.ndarray):
@@ -1412,16 +1562,17 @@ class MeshChunkFeed:
             self.cache.verify_tiles(bids)
         if self.sliced:
             rows = lead + (nb * self.bucket,)
-            lanes = (self.model_lanes,) + rows + (self.width,)
+            lanes = (len(self.lanes),) + rows + (self.width,)
             specs = {"idx": (lanes, np.int32), "val": (lanes, np.float32),
                      "pos": (lanes, np.int32), "y": (rows, np.float32)}
             t = self.staging.put(specs,
                                  lambda bufs: self._fill_sliced(bids, bufs))
             data = (t["idx"], t["val"], t["pos"])
         else:
+            kw = {} if self.rows is None else {"rows": self.rows}
             t = self.staging.put(
-                self._src.chunk_specs(lead, nb),
-                lambda bufs: self._src.gather_buckets(bids, out=bufs))
+                self._src.chunk_specs(lead, nb, **kw),
+                lambda bufs: self._src.gather_buckets(bids, out=bufs, **kw))
             data = (t["idx"], t["val"]) if self.sparse else t["X"]
         self.bytes_h2d += sum(x.numel() * x.element_size()
                               for x in t.values())
@@ -1464,18 +1615,28 @@ def reassemble_rows(idx_c: Tensor, val_c: Tensor, pos: Tensor, nnz: int
 
 def make_mesh_streamed_step(coll, solver: LocalSolver, algo: AlgoConfig, *,
                             nnz: Optional[int] = None,
-                            dv_scale: float = 1.0):
+                            dv_scale: float = 1.0, gather_lanes=None):
     """The mesh twin of `make_streamed_step`: the same (data, yc, cols,
     alpha, v) -> (alpha, v) step on a mesh's collectives, alpha the
     global (n,) vector.  With ``nnz`` the chunk is slice-compacted
     (`MeshChunkFeed` with model lanes), and its rows are reassembled
     (`reassemble_rows`) before the solver sees them, so it gets the
-    bytes the resident mesh hands it."""
+    bytes the resident mesh hands it.  ``gather_lanes`` (a process
+    mesh's `MeshCollectives.gather_model`) first collects every model
+    lane's compaction of the chunk from the ranks that hold them: idx,
+    val (as its bits) and pos in one int32 tensor, one all-gather a
+    chunk."""
     step = make_streamed_step(coll, solver, algo, dv_scale=dv_scale)
     if nnz is None:
         return step
 
     def sliced_step(data, yc, cols, a, v_c):
+        if gather_lanes is not None:
+            idx_c, val_c, pos = data                 # (1, *lead, rows, w)
+            packed = torch.stack([idx_c[0], val_c[0].view(torch.int32),
+                                  pos[0]])
+            g = gather_lanes(packed)                 # (M, 3, *lead, rows, w)
+            data = (g[:, 0], g[:, 1].view(torch.float32), g[:, 2])
         return step(reassemble_rows(*data, nnz), yc, cols, a, v_c)
 
     return sliced_step
@@ -1489,8 +1650,10 @@ class MeshStreamDriver:
     On a process mesh each rank's step writes alpha only at its own
     columns; `share_alpha` all-gathers every rank's columns (where the
     schedule's `layout(epoch)` put them) so alpha is whole on every
-    rank, as the stacked mesh's.  On a stacked mesh it returns alpha as
-    it is.
+    rank, as the stacked mesh's.  When the model axis carries slices a
+    worker's M ranks hold the same columns, with the same bits: the
+    columns are taken from each worker's model lane 0.  On a stacked
+    mesh it returns alpha as it is.
     """
 
     def __init__(self, coll, schedule: MeshSchedule, bucket: int):
@@ -1507,10 +1670,23 @@ class MeshStreamDriver:
             return alpha
         lay = self.schedule.layout(int(epoch)).astype(np.int64)
         B = self.bucket
-        # (world, n_local) columns; a worker's (pod, lane) is its rank
+        lanes = lay.shape[1]
+        # (workers, n_local) columns, a worker's row pod * lanes + lane
         cols = (lay[..., None] * B + np.arange(B)).reshape(lay.shape[0]
-                                                           * lay.shape[1], -1)
+                                                           * lanes, -1)
         cols = torch.from_numpy(cols).to(alpha.device)
-        parts = self.coll.gather(alpha[cols[self.coll.mesh.rank]], None)
-        alpha[cols.reshape(-1)] = torch.cat(parts)
+        mesh = self.coll.mesh
+        own = mesh.coords[0] * lanes + self.coll.lane
+        parts = self.coll.gather(alpha[cols[own]], None)
+        D, M = mesh.data, mesh.model
+        workers, keep = [], []
+        for r in range(mesh.size):
+            p, d, m = r // (D * M), r // M % D, r % M
+            if self.coll.model_role == "examples":
+                workers.append(p * lanes + d * M + m)
+                keep.append(parts[r])
+            elif m == 0:
+                workers.append(p * lanes + d)
+                keep.append(parts[r])
+        alpha[cols[workers].reshape(-1)] = torch.cat(keep)
         return alpha

@@ -24,7 +24,7 @@ run a CUDA division by a Python scalar as a reciprocal multiply).
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -75,35 +75,77 @@ def dense_bucket_pass(obj: Objective, xb: Tensor, yb: Tensor, ab: Tensor,
     return a_new, v
 
 
+def lane_ordered_sum(packed: Tensor) -> Tensor:
+    """(*w, M, B, 1 + B) the lanes' packed partials -> (*w, B, 1 + B),
+    summed over the lanes in lane order: the stacked form of the
+    model-axis sum (`dense_tp_bucket_pass`'s default ``reduce``)."""
+    parts = packed.unbind(-3)
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p
+    return total
+
+
+def tp_partials(Xt: Tensor, v: Tensor) -> Tensor:
+    """One bucket's packed partials per lane: Xt (*w, M, d/M, B) the
+    lanes' rows of the tile, v (*w, M, d/M) their slices of v ->
+    (*w, M, B, 1 + B), [m0 | G] with m0 = X_m^T v_m and G = X_m^T X_m.
+
+    Both products are elementwise products summed over the lane's rows,
+    not matmuls: a CPU matmul takes another kernel for one lane than for
+    a stack, and one process of a process mesh holds one lane."""
+    m0 = (Xt * v[..., None]).sum(-2)                      # (*w, M, B)
+    G = (Xt[..., :, :, None] * Xt[..., :, None, :]).sum(-3)
+    return torch.cat([m0[..., None], G], dim=-1)
+
+
+def tp_solve(obj: Objective, total: Tensor, Xt: Tensor, a: Tensor,
+             y: Tensor, v: Tensor, lam_n: Tensor, sigma_p: Tensor
+             ) -> tuple[Tensor, Tensor]:
+    """Every lane's recursion on its worker's lane-summed [m0 | G]:
+    total (*w, B, 1 + B), Xt (*w, M, d/M, B), a/y (*w, B), v (*w, M,
+    d/M) -> (deltas (*w, B), v with each lane's rows updated by
+    (sigma'/lam_n) X_m delta)."""
+    deltas = bucket_solve(obj, total[..., 1:], total[..., 0], a, y, lam_n,
+                          sigma_p)
+    upd = (Xt * deltas[..., None, None, :]).sum(-1)       # (*w, M, d/M)
+    return deltas, v + (sigma_p / lam_n) * upd
+
+
 def dense_tp_bucket_pass(obj: Objective, xb: Tensor, yb: Tensor,
                          ab: Tensor, v0: Tensor, lam_n: Tensor,
-                         sigma_p: Tensor, model_lanes: int
+                         sigma_p: Tensor, model_lanes: int,
+                         reduce: Optional[Callable[[Tensor], Tensor]] = None
                          ) -> tuple[Tensor, Tensor]:
     """`dense_bucket_pass` with the features split over `model_lanes`
     lanes (dense tensor parallelism): each lane holds d/M contiguous
     rows of every tile and of v.  Per bucket each lane forms its partial
-    m0 = X_m^T v_m and G = X_m^T X_m, the packed [m0 | G] partials are
-    summed over the lanes in lane order (the reference's model-axis psum
-    of `packed`), every lane runs the same recursion, and each lane
-    updates its own rows of v.  d must be a multiple of M."""
+    m0 = X_m^T v_m and G = X_m^T X_m (`tp_partials`), the packed
+    [m0 | G] partials are summed over the model lanes (the reference's
+    model-axis psum of `packed`), every lane runs the same recursion,
+    and each lane updates its own rows of v (`tp_solve`).  d must be a
+    multiple of M.
+
+    ``reduce`` maps the held lanes' partials (*w, M, B, 1 + B) to the
+    sum over every model lane (*w, B, 1 + B).  The default,
+    `lane_ordered_sum`, is the stacked form: all M lanes are held and
+    summed in lane order.  On a process mesh a rank holds one lane
+    (model_lanes=1 here) and ``reduce`` is the ordered all-gather sum
+    over 'model' (`engine.MeshCollectives.model_sum`), the same adds in
+    the same order."""
     *w, nb, d, B = xb.shape
     M = int(model_lanes)
     if d % M:
         raise ValueError(f"dense tensor parallelism splits d={d} over "
                          f"{M} model lanes; d must be a multiple of it")
+    reduce = lane_ordered_sum if reduce is None else reduce
     v = v0.reshape(*w, M, d // M)
     a_new = torch.empty_like(ab)
     for b in range(nb):
         Xt = xb[..., b, :, :].reshape(*w, M, d // M, B)
-        XtT = Xt.transpose(-1, -2)                       # (*w, M, B, d/M)
-        packed = torch.cat([XtT @ v[..., None], XtT @ Xt], dim=-1)
-        parts = packed.unbind(-3)
-        total = parts[0]
-        for p in parts[1:]:
-            total = total + p                            # (*w, B, 1 + B)
-        deltas = bucket_solve(obj, total[..., 1:], total[..., 0],
-                              ab[..., b, :], yb[..., b, :], lam_n, sigma_p)
-        v = v + (sigma_p / lam_n) * (Xt @ deltas[..., None, :, None])[..., 0]
+        total = reduce(tp_partials(Xt, v))              # (*w, B, 1 + B)
+        deltas, v = tp_solve(obj, total, Xt, ab[..., b, :], yb[..., b, :],
+                             v, lam_n, sigma_p)
         a_new[..., b, :] = ab[..., b, :] + deltas
     return a_new, v.reshape(*w, d)
 
@@ -111,13 +153,14 @@ def dense_tp_bucket_pass(obj: Objective, xb: Tensor, yb: Tensor,
 def dense_local_subepoch(obj: Objective, Xl: Tensor, yl: Tensor,
                          al: Tensor, v0: Tensor, lam_n: Tensor,
                          sigma_p: Tensor, bucket: int,
-                         model_lanes: Optional[int] = None
+                         model_lanes: Optional[int] = None,
+                         reduce: Optional[Callable[[Tensor], Tensor]] = None
                          ) -> tuple[Tensor, Tensor]:
     """One worker's pass over its buckets: Xl (*w, d, n_local) columns
     in visiting order, yl/al (*w, n_local), v0 (*w, d).
     Returns (al_new, dv) with dv the UNSCALED global delta (CoCoA+).
     `model_lanes` splits the features over that many lanes, whose
-    Gram and margin partials are summed per bucket
+    Gram and margin partials are summed per bucket by ``reduce``
     (`dense_tp_bucket_pass`; the reference's `model_axis`)."""
     *w, d, n_local = Xl.shape
     nb = n_local // bucket
@@ -125,7 +168,7 @@ def dense_local_subepoch(obj: Objective, Xl: Tensor, yl: Tensor,
     args = (obj, xb, yl.reshape(*w, nb, bucket),
             al.reshape(*w, nb, bucket), v0, lam_n, sigma_p)
     a_new, v1 = (dense_bucket_pass(*args) if model_lanes is None
-                 else dense_tp_bucket_pass(*args, model_lanes))
+                 else dense_tp_bucket_pass(*args, model_lanes, reduce))
     # CoCoA+: the local replica evolves with the sigma'-scaled updates,
     # the aggregated global delta is the UNSCALED (1/lam_n) A_k @ dalpha_k
     return a_new.reshape(*w, n_local), (v1 - v0) / sigma_p

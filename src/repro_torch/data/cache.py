@@ -415,25 +415,29 @@ class TileCache:
         return (idx, val), y
 
     # -- tile gather (the out-of-core path) ------------------------------
-    def chunk_specs(self, lead: tuple[int, ...], nb: int
+    def chunk_specs(self, lead: tuple[int, ...], nb: int, rows=None
                     ) -> dict[str, tuple[tuple[int, ...], np.dtype]]:
         """name -> (shape, dtype) of what `gather_buckets` returns for
-        bucket ids of shape (*lead, nb), in its order (data, then y)."""
+        bucket ids of shape (*lead, nb), in its order (data, then y);
+        ``rows`` (lo, hi) keeps dense features lo .. hi-1."""
         m = self.meta
+        lo, hi = rows if rows is not None else (0, m.d)
         rows = lead + (nb * m.bucket,)
         if m.kind == "dense":
-            specs = {"X": (lead + (m.d, nb * m.bucket), np.float32)}
+            specs = {"X": (lead + (hi - lo, nb * m.bucket), np.float32)}
         else:
             specs = {"idx": (rows + (m.nnz,), np.int32),
                      "val": (rows + (m.nnz,), np.float32)}
         specs["y"] = (rows, np.float32)
         return specs
 
-    def gather_buckets(self, bids: np.ndarray, out=None):
+    def gather_buckets(self, bids: np.ndarray, out=None, rows=None):
         """Gather whole bucket tiles by GLOBAL bucket id.
 
         bids (*lead, nb) int -> dense  (data (*lead, d, nb*B), y ...)
                               -> sparse ((idx, val) (*lead, nb*B, nnz), y)
+        ``rows`` (lo, hi) keeps only dense features lo .. hi-1 (a tensor-
+        parallel lane's rows).
         Only the touched tiles are read from the mmap, each array by one
         `np.take` into ``out``: a dict of arrays shaped as `chunk_specs`
         says, new ones when it is None.  A feed passes its pinned
@@ -446,8 +450,8 @@ class TileCache:
         bids = np.asarray(bids)
         lead, nb = bids.shape[:-1], bids.shape[-1]
         if out is None:
-            out = {k: np.empty(s, dt)
-                   for k, (s, dt) in self.chunk_specs(lead, nb).items()}
+            out = {k: np.empty(s, dt) for k, (s, dt) in
+                   self.chunk_specs(lead, nb, rows).items()}
         if bids.size and (bids.min() < 0 or bids.max() >= m.n_buckets):
             raise IndexError(f"bucket ids outside [0, {m.n_buckets})")
         B = m.bucket
@@ -456,9 +460,10 @@ class TileCache:
         np.take(self._flat("y"), bids, axis=0, mode="clip",
                 out=out["y"].reshape(lead + (nb, B)))
         if m.kind == "dense":
+            lo, hi = rows if rows is not None else (0, m.d)
             t = np.take(self._flat("X"), bids, axis=0, mode="clip")
-            np.copyto(out["X"].reshape(lead + (m.d, nb, B)),
-                      np.swapaxes(t, -3, -2)[..., :m.d, :, :])
+            np.copyto(out["X"].reshape(lead + (hi - lo, nb, B)),
+                      np.swapaxes(t, -3, -2)[..., lo:hi, :, :])
             return out["X"], out["y"]
         for aname in ("idx", "val"):
             np.take(self._flat(aname), bids, axis=0, mode="clip",
@@ -622,35 +627,37 @@ class ArrayFeed:
                 + np.arange(B, dtype=np.int32)).reshape(
                     bids.shape[:-1] + (-1,))
 
-    def chunk_specs(self, lead: tuple[int, ...], nb: int
+    def chunk_specs(self, lead: tuple[int, ...], nb: int, rows=None
                     ) -> dict[str, tuple[tuple[int, ...], np.dtype]]:
         """name -> (shape, dtype) of what `gather_buckets` returns for
         bucket ids of shape (*lead, nb) (`TileCache.chunk_specs`)."""
+        lo, hi = rows if rows is not None else (0, self.d)
         rows = tuple(lead) + (nb * self.bucket,)
         if self.sparse:
             nnz = self.idx.shape[1]
             specs = {"idx": (rows + (nnz,), np.int32),
                      "val": (rows + (nnz,), np.float32)}
         else:
-            specs = {"X": (rows[:-1] + (self.d, rows[-1]), np.float32)}
+            specs = {"X": (rows[:-1] + (hi - lo, rows[-1]), np.float32)}
         specs["y"] = (rows, np.float32)
         return specs
 
-    def gather_buckets(self, bids: np.ndarray, out=None):
+    def gather_buckets(self, bids: np.ndarray, out=None, rows=None):
         """The rows of bucket ids (*lead, nb), into ``out`` (a dict of
         arrays shaped as `chunk_specs` says; new ones when None):
         `TileCache.gather_buckets`'s contract over the host arrays."""
         bids = np.asarray(bids)
         cols = self._cols(bids)
         if out is None:
-            out = {k: np.empty(s, dt) for k, (s, dt) in
-                   self.chunk_specs(bids.shape[:-1], bids.shape[-1]).items()}
+            out = {k: np.empty(s, dt) for k, (s, dt) in self.chunk_specs(
+                bids.shape[:-1], bids.shape[-1], rows).items()}
         np.take(self.y, cols, out=out["y"])
         if self.sparse:
             np.take(self.idx, cols, axis=0, out=out["idx"])
             np.take(self.val, cols, axis=0, out=out["val"])
             return (out["idx"], out["val"]), out["y"]
-        np.copyto(out["X"], np.moveaxis(self.X[:, cols], 0, -2))
+        X = self.X if rows is None else self.X[rows[0]:rows[1]]
+        np.copyto(out["X"], np.moveaxis(X[:, cols], 0, -2))
         return out["X"], out["y"]
 
     def fetch(self, bids: np.ndarray):

@@ -34,6 +34,29 @@ KERNEL_CONTRACTS: dict[str, dict] = {
         "smem_estimate": "repro_torch.kernels.sdca_bucket:smem_layout",
         "replaces": "src/repro/kernels/sdca_bucket.py:102",
     },
+    # dense tensor-parallel pair, one launch of each per bucket: the
+    # lanes' packed [m0 | G] partials, then (after the caller's
+    # lane-ordered sum over 'model') the recursion and each lane's
+    # update of its rows of v; B1's sums and recursion
+    # (csrc/dense_recursion.cuh), built with the common flags as B1 is.
+    # Tiles in global memory; the solve's a, y, q and deltas in 16 B
+    # of static-size dynamic shared memory a coordinate.
+    "sdca_bucket.sdca_bucket_tp_partials": {
+        "source": "csrc/sdca_bucket_tp.cu",
+        "entry": "sdca_bucket_tp_partials_launch",
+        "nvcc_extra": (),
+        "misfit": "repro_torch.kernels.ops:dense_kernel_misfit",
+        "smem_estimate": None,
+        "replaces": "src/repro/kernels/sdca_bucket.py:102",
+    },
+    "sdca_bucket.sdca_bucket_tp_solve": {
+        "source": "csrc/sdca_bucket_tp.cu",
+        "entry": "sdca_bucket_tp_solve_launch",
+        "nvcc_extra": (),
+        "misfit": "repro_torch.kernels.ops:dense_kernel_misfit",
+        "smem_estimate": None,
+        "replaces": "src/repro/kernels/sdca_bucket.py:102",
+    },
     # sparse replicated kernel: v replicas in global memory, two stages
     # of a bucket's links and working set in shared memory (in global
     # memory for a bucket too large for it).  -fmad=false keeps every

@@ -34,7 +34,8 @@
 //    every lane computes the same value.
 // Every sum (m0_j over f, G_ij over f, (X_b delta)_f over i) runs in the
 // same order as the plain loop of the earlier one-thread-per-delta
-// kernel.  The tile and G sit in shared memory when two stages of them
+// kernel; those sums and the recursion are dense_recursion.cuh's, which
+// the tensor-parallel pair (sdca_bucket_tp.cu) shares.  The tile and G sit in shared memory when two stages of them
 // fit the 227 KB opt-in, else they are read from global memory (G from
 // a (W, 2, B, B) scratch the wrapper allocates).  Each worker owns its v
 // replica in v_out, so no two blocks write the same address.  fp32 on
@@ -42,7 +43,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "bisect_tree.cuh"
+#include "dense_recursion.cuh"
 #include "objectives.cuh"
 
 namespace {
@@ -144,10 +145,7 @@ __device__ void producer(const Smem& sm, const float* __restrict__ xw,
     float* G = sm.G + (size_t)B * B * st;
     for (int t = ptid; t < B * B; t += kProducers) {
       const int i = t / B, j = t - (t / B) * B;
-      float s = 0.0f;
-      for (int f = 0; f < d_pad; ++f) {
-        s += x[(size_t)f * B + i] * x[(size_t)f * B + j];
-      }
+      const float s = gram_sum(x, d_pad, B, i, j);
       G[t] = s;
       if (i == j) ayq[2 * B + i] = sig * s / lam_n;
     }
@@ -180,38 +178,17 @@ __device__ void chain(const Smem& sm, const float* __restrict__ xw,
 #pragma unroll
     for (int k = 0; k < MPL; ++k) {
       const int j = lane + 32 * k;
-      float s = 0.0f;
-      if (j < B) {
-        for (int f = 0; f < d_pad; ++f) s += x[(size_t)f * B + j] * v[f];
-      }
-      m[k] = s;
+      m[k] = j < B ? margin_sum(x, v, d_pad, B, j) : 0.0f;
     }
 
     // the serial recursion over the bucket's coordinates
-    for (int i = 0; i < B; ++i) {
-      float mi_own = m[0];
-#pragma unroll
-      for (int k = 1; k < MPL; ++k) {
-        if (k == (i >> 5)) mi_own = m[k];
-      }
-      const float mi = __shfl_sync(0xffffffffu, mi_own, i & 31);
-      const float d = chain_delta<OBJ>(mi, ayq[i], ayq[B + i],
-                                       ayq[2 * B + i], lane);
-      if (t == 0) sm.del[i] = d;
-      const float c = sig * d / lam_n;
-#pragma unroll
-      for (int k = 0; k < MPL; ++k) {
-        const int j = lane + 32 * k;
-        if (j < B) m[k] += c * G[i * B + j];
-      }
-    }
+    bucket_recursion<OBJ, MPL>(m, G, B, ayq, ayq + B, ayq + 2 * B, sm.del,
+                               B, lam_n, sig, lane);
     __syncwarp();
 
     // v += (sigma'/lam_n) X_b delta;  alpha_b += delta
     for (int f = t; f < d_pad; f += kChainThreads) {
-      float s = 0.0f;
-      for (int i = 0; i < B; ++i) s += x[(size_t)f * B + i] * sm.del[i];
-      v[f] = v[f] + vscale * s;
+      v[f] = v[f] + vscale * update_sum(x, sm.del, B, f);
     }
     const size_t row = row0 + (size_t)b * B;
     for (int i = t; i < B; i += kChainThreads)

@@ -16,7 +16,10 @@
 // small fraction of what the card could do in that time.
 //
 // What the design does about it: one block per (worker, lane), every
-// block of the bucket in one launch.  At webspam width the idx tile
+// block of the bucket in one launch.  v_loc holds M lanes' slices from
+// lane m0 on, and block g runs lane m0 + g % M: m0 = 0 with every lane
+// held on a stacked mesh, m0 = the rank's own lane with M = 1 on a
+// process mesh (one lane a process).  At webspam width the idx tile
 // alone is 238,592 bytes, so the tiles, the links and the feature cells
 // S (one per entry place, ~7.6 MB over 32 blocks, held by the L2) stay
 // in global memory; the row's operands live in shared memory (in a
@@ -216,10 +219,10 @@ sdca_sparse_sharded_bucket_kernel(
     const float* __restrict__ yb, const float* __restrict__ ab,
     const float* __restrict__ qb, const int* __restrict__ links,
     const float* __restrict__ Wx, float* __restrict__ v_loc,
-    float* __restrict__ a_out, float* S, float* rows_g, int M, int nb,
-    int b, int B, int nnz, int d_loc, float lam_n, float sig) {
+    float* __restrict__ a_out, float* S, float* rows_g, int M, int m0,
+    int nb, int b, int B, int nnz, int d_loc, float lam_n, float sig) {
   extern __shared__ __align__(16) float smem[];
-  const int g = blockIdx.x;  // (worker, lane) block, lane-minor
+  const int g = blockIdx.x;  // (worker, held lane) block, lane-minor
   const int row_words = kRowArrays * round4(nnz);
   const Row r =
       kRowsInSmem
@@ -241,7 +244,7 @@ sdca_sparse_sharded_bucket_kernel(
   const float* Wg = Wx + (size_t)w * E;  // the worker's, on every lane
   float* Sg = S + (size_t)g * E;
   float* v = v_loc + (size_t)g * d_loc;
-  const long long lo = (long long)lane * d_loc;
+  const long long lo = (long long)(m0 + lane) * d_loc;  // the lane's slice
 
   // each feature's cell (the place of its first entry) starts at its
   // working-set value
@@ -299,8 +302,8 @@ template <int OBJ, bool kRowsInSmem>
 cudaError_t launch_as(const int* idxb, const float* valb, const float* yb,
                       const float* ab, const float* qb, const int* links,
                       const float* Wx, float* v_loc, float* a_out, float* S,
-                      float* rows_g, int G, int M, int nb, int b, int B,
-                      int nnz, int d_loc, float lam_n, float sig,
+                      float* rows_g, int G, int M, int m0, int nb, int b,
+                      int B, int nnz, int d_loc, float lam_n, float sig,
                       int smem_bytes, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       sdca_sparse_sharded_bucket_kernel<OBJ, kRowsInSmem>,
@@ -309,7 +312,8 @@ cudaError_t launch_as(const int* idxb, const float* valb, const float* yb,
   sdca_sparse_sharded_bucket_kernel<OBJ, kRowsInSmem>
       <<<G, kThreads, smem_bytes, stream>>>(idxb, valb, yb, ab, qb, links,
                                             Wx, v_loc, a_out, S, rows_g, M,
-                                            nb, b, B, nnz, d_loc, lam_n, sig);
+                                            m0, nb, b, B, nnz, d_loc, lam_n,
+                                            sig);
   return cudaGetLastError();
 }
 
@@ -318,16 +322,16 @@ template <int OBJ>
 cudaError_t launch(const int* idxb, const float* valb, const float* yb,
                    const float* ab, const float* qb, const int* links,
                    const float* Wx, float* v_loc, float* a_out, float* S,
-                   float* rows_g, int G, int M, int nb, int b, int B, int nnz,
-                   int d_loc, float lam_n, float sig, int smem_bytes,
+                   float* rows_g, int G, int M, int m0, int nb, int b, int B,
+                   int nnz, int d_loc, float lam_n, float sig, int smem_bytes,
                    cudaStream_t stream) {
   return rows_g == nullptr
              ? launch_as<OBJ, true>(idxb, valb, yb, ab, qb, links, Wx, v_loc,
-                                    a_out, S, rows_g, G, M, nb, b, B, nnz,
+                                    a_out, S, rows_g, G, M, m0, nb, b, B, nnz,
                                     d_loc, lam_n, sig, smem_bytes, stream)
              : launch_as<OBJ, false>(idxb, valb, yb, ab, qb, links, Wx,
-                                     v_loc, a_out, S, rows_g, G, M, nb, b, B,
-                                     nnz, d_loc, lam_n, sig, smem_bytes,
+                                     v_loc, a_out, S, rows_g, G, M, m0, nb, b,
+                                     B, nnz, d_loc, lam_n, sig, smem_bytes,
                                      stream);
 }
 
@@ -336,25 +340,25 @@ cudaError_t launch(const int* idxb, const float* valb, const float* yb,
 extern "C" int sdca_sparse_sharded_bucket_launch(
     const int* idxb, const float* valb, const float* yb, const float* ab,
     const float* qb, const int* links, const float* Wx, float* v_loc,
-    float* a_out, float* S, float* rows_g, int G, int M, int nb, int b, int B,
-    int nnz, int d_loc, float lam_n, float sig, int obj, int smem_bytes,
-    void* stream) {
+    float* a_out, float* S, float* rows_g, int G, int M, int m0, int nb,
+    int b, int B, int nnz, int d_loc, float lam_n, float sig, int obj,
+    int smem_bytes, void* stream) {
   if (G <= 0) return cudaSuccess;
-  if (B <= 0 || nnz <= 0) return cudaErrorInvalidValue;
+  if (B <= 0 || nnz <= 0 || M <= 0 || m0 < 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (obj) {
     case OBJ_RIDGE:
       return launch<OBJ_RIDGE>(idxb, valb, yb, ab, qb, links, Wx, v_loc,
-                               a_out, S, rows_g, G, M, nb, b, B, nnz, d_loc,
-                               lam_n, sig, smem_bytes, s);
+                               a_out, S, rows_g, G, M, m0, nb, b, B, nnz,
+                               d_loc, lam_n, sig, smem_bytes, s);
     case OBJ_HINGE:
       return launch<OBJ_HINGE>(idxb, valb, yb, ab, qb, links, Wx, v_loc,
-                               a_out, S, rows_g, G, M, nb, b, B, nnz, d_loc,
-                               lam_n, sig, smem_bytes, s);
+                               a_out, S, rows_g, G, M, m0, nb, b, B, nnz,
+                               d_loc, lam_n, sig, smem_bytes, s);
     case OBJ_LOGISTIC:
       return launch<OBJ_LOGISTIC>(idxb, valb, yb, ab, qb, links, Wx, v_loc,
-                                  a_out, S, rows_g, G, M, nb, b, B, nnz, d_loc,
-                                  lam_n, sig, smem_bytes, s);
+                                  a_out, S, rows_g, G, M, m0, nb, b, B, nnz,
+                                  d_loc, lam_n, sig, smem_bytes, s);
     default:
       return cudaErrorInvalidValue;
   }

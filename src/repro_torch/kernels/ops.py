@@ -5,7 +5,10 @@ call-compatible with `core.sdca.dense_local_subepoch` and
 `core.sdca.sparse_local_subepoch` (with any number of leading worker
 axes), so the engine routes a whole P*K worker stack through one kernel
 launch; `sdca_sparse_sharded_subepoch` is the feature-sharded route,
-every (worker, model lane) block in one launch per bucket.
+every (worker, model lane) block in one launch per bucket, or one lane
+a process with the working sets exchanged by a callable; and
+`sdca_bucket_tp_subepoch` is dense tensor parallelism through the split
+pair, the lanes' partials summed between its two launches.
 `rglru_scan` and `flash_attention` serve the LM: the RG-LRU recurrence
 and online-softmax attention at the reference's public layouts.
 `dense_tiles`, `sparse_tiles` and `sharded_tiles` own the layout of the
@@ -335,27 +338,48 @@ def sdca_sparse_bucket_subepoch(obj: Objective, idx, val, yl, al, v0,
     return a_out.to(al.dtype), dv.reshape(*w, d).to(v0.dtype)
 
 
+def owner_select(parts, idx_b, d_loc: int):
+    """The exchanged working set from every lane's partial one: parts
+    (M, Wk, B, nnz) in lane order, idx_b (Wk, B, nnz) the bucket's ids
+    -> (Wk, B, nnz), each entry the bits of the lane that owns its
+    feature (``idx // d_loc``).  Pure data movement: a sum of the
+    partials would turn an owned -0.0 into +0.0."""
+    owner = (idx_b.long() // d_loc)[None]
+    return torch.gather(parts, 0, owner)[0].contiguous()
+
+
 def sdca_sparse_sharded_subepoch(obj: Objective, idx, val, yl, al, v0,
                                  lam_n, sig, *, bucket: int,
-                                 model_lanes: int,
+                                 model_lanes: int, lane: int | None = None,
+                                 exchange=None,
                                  source: str = "ad-hoc arrays"):
-    """Every worker's FEATURE-SHARDED sparse sub-epoch, its `model_lanes`
-    lanes stacked on a tensor axis.
+    """Every worker's FEATURE-SHARDED sparse sub-epoch.
 
     idx/val: (*w, n_local, nnz) padded-CSR rows in visiting order; v0:
     (*w, d) each worker's replicated v, of which lane m keeps only its
     slice [m*d_loc, (m+1)*d_loc) (`sparse_slice_width`).  Per bucket,
     two launches: (1) the gather gives each worker its exchanged
     working set, every entry the bits of the slice that owns its
-    feature (the reference's per-lane gather, all-gather and
-    owner-select as one load per entry: pure data movement, so the
-    working set is bitwise the replicated kernel's); (2) the recursion
-    runs the bucket on every lane and scatters each lane's owned
-    entries into its slice.
+    feature; (2) the recursion runs the bucket on every held lane and
+    scatters each lane's owned entries into its slice.
 
-    Returns (a_new (*w, M, n_local), dv (*w, M, d)): every lane's duals
-    (all equal) and each lane's UNSCALED global delta, zero outside its
-    slice, so an ordered sum over the lanes gives the replicated dv.
+    The stacked form (``lane`` None, the default) holds all
+    `model_lanes` lanes on a tensor axis: the gather reads every slice,
+    so it is the reference's per-lane gather, all-gather and
+    owner-select as one load per entry (pure data movement, so the
+    working set is bitwise the replicated kernel's).  The process form
+    holds one lane, ``lane``: the gather is that lane's partial working
+    set (exact +0.0 off its slice), ``exchange(partial)`` returns every
+    lane's partial stacked in lane order, (M, Wk, B, nnz) (on a process
+    mesh the ordered all-gather over 'model',
+    `engine.MeshCollectives.gather_model`), each entry keeps its
+    owner's bits (``idx // d_loc``; never a sum, which would lose
+    -0.0), and the recursion runs this lane alone.
+
+    Returns (a_new (*w, Mh, n_local), dv (*w, Mh, d)) for the Mh held
+    lanes (M, or 1): every held lane's duals (all equal) and each held
+    lane's UNSCALED global delta, zero outside its slice, so an ordered
+    sum over the lanes gives the replicated dv.
     """
     _check_csr_invariant(idx, val, source)
     *w, n_local, nnz = idx.shape
@@ -364,23 +388,73 @@ def sdca_sparse_sharded_subepoch(obj: Objective, idx, val, yl, al, v0,
     d_loc = sparse_slice_width(d, M)
     idxb, valb, yb, ab, qb, links, v_loc = sharded_tiles(
         idx, val, yl, al, v0, bucket=bucket, model_lanes=M, source=source)
+    m0 = 0
+    if lane is not None:
+        if exchange is None or not 0 <= lane < M:
+            raise ValueError(f"the process form holds lane {lane} of {M} "
+                             f"and needs an exchange")
+        m0 = int(lane)
+        v_loc = v_loc[:, m0:m0 + 1].contiguous()
     Wk, nb, B, _ = idxb.shape
+    Mh = v_loc.shape[1]
     v_loc0 = v_loc.clone()
-    a_new = torch.empty((Wk, M, nb, B), dtype=torch.float32,
+    a_new = torch.empty((Wk, Mh, nb, B), dtype=torch.float32,
                         device=idx.device)
     for b in range(nb):
         W = sdca_sparse_bucket.sdca_sparse_gather_bucket(
-            idxb, b, v_loc, source=source)
+            idxb, b, v_loc, m0, source=source)
+        if lane is not None:
+            W = owner_select(exchange(W), idxb[:, b], d_loc)
         a_new[:, :, b] = sdca_sparse_bucket.sdca_sparse_sharded_bucket(
             obj, idxb, valb, yb, ab, qb, links, b, W, v_loc, float(lam_n),
-            float(sig), source)
+            float(sig), source, m0=m0)
     dv_loc = (v_loc - v_loc0) / _scalar(sig, v0.device)
-    dv = torch.zeros((Wk, M, M, d_loc), dtype=torch.float32,
+    dv = torch.zeros((Wk, Mh, M, d_loc), dtype=torch.float32,
                      device=v0.device)
-    torch.diagonal(dv, dim1=1, dim2=2).copy_(dv_loc.transpose(1, 2))
-    dv = dv.reshape(Wk, M, M * d_loc)[..., :d]
-    return (a_new.reshape(*w, M, n_local).to(al.dtype),
-            dv.reshape(*w, M, d).to(v0.dtype))
+    for h in range(Mh):
+        dv[:, h, m0 + h] = dv_loc[:, h]
+    dv = dv.reshape(Wk, Mh, M * d_loc)[..., :d]
+    return (a_new.reshape(*w, Mh, n_local).to(al.dtype),
+            dv.reshape(*w, Mh, d).to(v0.dtype))
+
+
+def sdca_bucket_tp_subepoch(obj: Objective, Xl, yl, al, v0, lam_n, sig, *,
+                            bucket: int, model_lanes: int, reduce=None,
+                            source: str = "ad-hoc arrays"):
+    """Every worker's dense TENSOR-PARALLEL sub-epoch through the split
+    pair (`sdca_bucket.sdca_bucket_tp_partials`, `..._tp_solve`).
+
+    Xl: (*w, Mh*d_loc, n_local) each worker's held lanes' rows in lane
+    order, columns in visiting order; yl/al (*w, n_local); v0 (*w,
+    Mh*d_loc) the lanes' slices of v.  Per bucket: the partials of
+    every held lane, ``reduce`` over the model lanes ((W, Mh, B, 1 + B)
+    -> (W, B, 1 + B); default `core.sdca.lane_ordered_sum`, the stacked
+    form, all lanes held; on a process mesh, one lane a rank, the
+    ordered all-gather sum over 'model', `engine.MeshCollectives.
+    model_sum`), then the solve.  Returns (a_new (*w, n_local), dv
+    (*w, Mh*d_loc)) with dv the UNSCALED delta of the held rows, as
+    `core.sdca.dense_local_subepoch` with ``model_lanes``.
+    """
+    from repro_torch.core.sdca import lane_ordered_sum
+    reduce = lane_ordered_sum if reduce is None else reduce
+    *w, d, n_local = Xl.shape
+    Mh = int(model_lanes)
+    xb, yb, ab, v = dense_tiles(Xl, yl, al, v0, bucket=bucket)
+    yb, ab = yb.contiguous(), ab.contiguous()
+    v = v.contiguous().clone()                     # updated in place
+    v_start = v.clone()
+    W, nb, _, B = xb.shape
+    a_new = torch.empty((W, nb, B), dtype=torch.float32, device=xb.device)
+    for b in range(nb):
+        parts = sdca_bucket.sdca_bucket_tp_partials(
+            xb, v, b, model_lanes=Mh, source=source)
+        total = reduce(parts).contiguous()
+        a_new[:, b] = sdca_bucket.sdca_bucket_tp_solve(
+            obj, total, xb, yb, ab, v, b, float(lam_n), float(sig),
+            model_lanes=Mh, source=source)[:, 0]
+    dv = (v - v_start) / _scalar(sig, v0.device)
+    return (a_new.reshape(*w, n_local).to(al.dtype),
+            dv.reshape(*w, d).to(v0.dtype))
 
 
 def rglru_scan(x, a_log, gate_a, gate_x, h0):

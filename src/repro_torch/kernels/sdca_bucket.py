@@ -9,6 +9,15 @@ on a CUDA tensor it launches the kernel or raises.
 
 d and B need no alignment (`ops.dense_tiles` pads neither).  B is
 capped at `MAX_BUCKET`.
+
+The tensor-parallel pair (`csrc/sdca_bucket_tp.cu`) splits the same
+arithmetic around the model lanes' per-bucket exchange, so that a lane
+can run in its own process: `sdca_bucket_tp_partials` forms each lane's
+packed [m0 | G] partials from its rows of a bucket's tile, the caller
+sums them over the model lanes in lane order, and
+`sdca_bucket_tp_solve` runs the recursion on the sum and updates each
+lane's rows of v.  The sums and the recursion are B1's
+(`csrc/dense_recursion.cuh`).
 """
 from __future__ import annotations
 
@@ -56,12 +65,27 @@ def smem_layout(B: int, d: int) -> tuple[bool, bool, int]:
     return x_in, g_in, used + (gram if g_in else 0)
 
 
-def _fn():
-    fn = build.load("sdca_bucket").sdca_bucket_launch
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, f, f, i, i, i, i, p]
+def c_entry(stem: str, argtypes: str, entry: str = ""):
+    """The C entry point of `csrc/<stem>.cu` (``entry``, by default
+    ``<stem>_launch``), built at first use; argtypes: p pointer, i int,
+    f float, one letter each."""
+    fn = getattr(build.load(stem), entry or f"{stem}_launch")
+    kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+    fn.argtypes = [kinds[c] for c in argtypes]
     fn.restype = ctypes.c_int
     return fn
+
+
+def check_tensor(name, t, shape, dtype, device):
+    """Raise unless `t` is a contiguous `dtype` tensor of `shape` on
+    `device` (what a kernel's pointer arithmetic assumes)."""
+    if (tuple(t.shape) != tuple(shape) or t.dtype != dtype
+            or t.device != device or not t.is_contiguous()):
+        raise ValueError(
+            f"{name}: expected a contiguous {dtype} tensor of shape "
+            f"{tuple(shape)} on {device}, got {t.dtype} "
+            f"{tuple(t.shape)} on {t.device}"
+            + ("" if t.is_contiguous() else " (not contiguous)"))
 
 
 def sdca_bucket_plain(obj: Objective, xb, yb, ab, v0, lam_n: float,
@@ -104,7 +128,8 @@ def sdca_bucket_kernel(obj: Objective, xb, yb, ab, v0, lam_n: float,
     v_out = torch.empty_like(v0)
     g_scratch = (torch.empty((W, STAGES, B, B), dtype=torch.float32,
                              device=xb.device) if not g_in else None)
-    err = _fn()(xb.data_ptr(), yb.data_ptr(), ab.data_ptr(), v0.data_ptr(),
+    err = c_entry("sdca_bucket", "ppppppp" "iiii" "ff" "iiii" "p")(
+        xb.data_ptr(), yb.data_ptr(), ab.data_ptr(), v0.data_ptr(),
                 a_out.data_ptr(), v_out.data_ptr(),
                 g_scratch.data_ptr() if g_scratch is not None else None,
                 W, nb, d, B, lam_n, sig, OBJ_CODES[obj.name],
@@ -115,3 +140,123 @@ def sdca_bucket_kernel(obj: Objective, xb, yb, ab, v0, lam_n: float,
                            f"{err} (W={W}, nb={nb}, d={d}, B={B})")
     launches += 1
     return a_out, v_out
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel pair (`csrc/sdca_bucket_tp.cu`): B1's arithmetic split
+# around the model lanes' exchange, one launch of each per bucket;
+# `ops.sdca_bucket_tp_subepoch` drives them.
+# ---------------------------------------------------------------------------
+
+#: launches of the pair's two kernels (the plain versions do not count)
+tp_partials_launches = 0
+tp_solve_launches = 0
+
+
+def _tp_lanes(xb, v, model_lanes: int):
+    W, nb, d, B = xb.shape
+    Mh = int(model_lanes)
+    if Mh < 1 or d % Mh:
+        raise ValueError(f"tensor-parallel tiles of {d} rows do not split "
+                         f"into {Mh} lanes")
+    return W, nb, d, B, Mh, d // Mh
+
+
+def sdca_bucket_tp_partials_plain(xb, v, b: int, model_lanes: int):
+    """The plain PyTorch version of `sdca_bucket_tp_partials`
+    (`core.sdca.tp_partials`)."""
+    W, nb, d, B, Mh, d_loc = _tp_lanes(xb, v, model_lanes)
+    return sdca.tp_partials(xb[:, b].reshape(W, Mh, d_loc, B),
+                            v.reshape(W, Mh, d_loc))
+
+
+def sdca_bucket_tp_partials(xb, v, b: int, *, model_lanes: int,
+                            source: str = "ad-hoc arrays"):
+    """Bucket `b`'s packed [m0 | G] partials of every held lane.
+
+    xb: (W, nb, Mh*d_loc, B) f32 tiles, each worker's held lanes' rows
+    stacked in lane order (`ops.dense_tiles`); v: (W, Mh*d_loc) f32 the
+    lanes' slices of v.  Returns (W, Mh, B, 1 + B): column 0 is
+    m0 = X_m^T v_m, column 1 + i is G's column i, each a sum over the
+    lane's rows in B1's order.
+    """
+    global tp_partials_launches
+    if xb.device.type == "cpu":
+        return sdca_bucket_tp_partials_plain(xb, v, b, model_lanes)
+    if xb.device.type != "cuda":
+        raise ValueError(
+            f"sdca_bucket_tp_partials: unsupported device {xb.device}")
+    W, nb, d, B, Mh, d_loc = _tp_lanes(xb, v, model_lanes)
+    if B > MAX_BUCKET or not 0 <= b < nb:
+        raise ValueError(f"dense tiles from {source}: bucket {b} of {nb}, "
+                         f"B={B} (at most {MAX_BUCKET})")
+    check_tensor("xb", xb, (W, nb, d, B), torch.float32, xb.device)
+    check_tensor("v", v, (W, d), torch.float32, xb.device)
+    out = torch.empty((W, Mh, B, B + 1), dtype=torch.float32,
+                      device=xb.device)
+    err = c_entry("sdca_bucket_tp", "ppp" "iiiiii" "p",
+                  "sdca_bucket_tp_partials_launch")(
+        xb.data_ptr(), v.data_ptr(), out.data_ptr(), W, Mh, nb, b, d_loc, B,
+        torch.cuda.current_stream(xb.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"sdca_bucket_tp_partials kernel launch failed "
+                           f"on tiles from {source}: CUDA error {err} "
+                           f"(W={W}, Mh={Mh}, d_loc={d_loc}, B={B})")
+    tp_partials_launches += 1
+    return out
+
+
+def sdca_bucket_tp_solve_plain(obj: Objective, total, xb, yb, ab, v,
+                               b: int, lam_n: float, sig: float,
+                               model_lanes: int):
+    """The plain PyTorch version of `sdca_bucket_tp_solve`
+    (`core.sdca.tp_solve`); v is updated in place."""
+    W, nb, d, B, Mh, d_loc = _tp_lanes(xb, v, model_lanes)
+    lam = torch.tensor(lam_n, dtype=torch.float32, device=xb.device)
+    s = torch.tensor(sig, dtype=torch.float32, device=xb.device)
+    deltas, v_new = sdca.tp_solve(
+        obj, total, xb[:, b].reshape(W, Mh, d_loc, B), ab[:, b], yb[:, b],
+        v.reshape(W, Mh, d_loc), lam, s)
+    v.copy_(v_new.reshape(W, d))
+    return (ab[:, b] + deltas)[:, None].expand(W, Mh, B).contiguous()
+
+
+def sdca_bucket_tp_solve(obj: Objective, total, xb, yb, ab, v, b: int,
+                         lam_n: float, sig: float, *, model_lanes: int,
+                         source: str = "ad-hoc arrays"):
+    """Bucket `b`'s recursion on every held lane from its worker's
+    lane-summed partials, and each lane's update of its rows of v.
+
+    total: (W, B, 1 + B) f32, the sum over every model lane of the
+    `sdca_bucket_tp_partials`; xb (W, nb, Mh*d_loc, B); yb/ab (W, nb,
+    B); v (W, Mh*d_loc) f32, UPDATED IN PLACE.  Returns a_new (W, Mh,
+    B): every held lane's copy of the bucket's duals (all equal).
+    """
+    global tp_solve_launches
+    if xb.device.type == "cpu":
+        return sdca_bucket_tp_solve_plain(obj, total, xb, yb, ab, v, b,
+                                          lam_n, sig, model_lanes)
+    if xb.device.type != "cuda":
+        raise ValueError(
+            f"sdca_bucket_tp_solve: unsupported device {xb.device}")
+    W, nb, d, B, Mh, d_loc = _tp_lanes(xb, v, model_lanes)
+    if B > MAX_BUCKET or not 0 <= b < nb:
+        raise ValueError(f"dense tiles from {source}: bucket {b} of {nb}, "
+                         f"B={B} (at most {MAX_BUCKET})")
+    dev = xb.device
+    for name, t, shape in (("total", total, (W, B, B + 1)),
+                           ("xb", xb, (W, nb, d, B)), ("yb", yb, (W, nb, B)),
+                           ("ab", ab, (W, nb, B)), ("v", v, (W, d))):
+        check_tensor(name, t, shape, torch.float32, dev)
+    a_out = torch.empty((W, Mh, B), dtype=torch.float32, device=dev)
+    err = c_entry("sdca_bucket_tp", "pppppp" "iiiiii" "ff" "i" "p",
+                  "sdca_bucket_tp_solve_launch")(
+        total.data_ptr(), xb.data_ptr(), yb.data_ptr(), ab.data_ptr(),
+        v.data_ptr(), a_out.data_ptr(), W, Mh, nb, b, d_loc, B, lam_n, sig,
+        OBJ_CODES[obj.name], torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"sdca_bucket_tp_solve kernel launch failed on "
+                           f"tiles from {source}: CUDA error {err} (W={W}, "
+                           f"Mh={Mh}, d_loc={d_loc}, B={B})")
+    tp_solve_launches += 1
+    return a_out

@@ -38,15 +38,13 @@ pair together is bitwise equal to the replicated scan.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.core import sdca
 from repro_torch.core.objectives import Objective
 from . import build
 from .contracts import SMEM_OPTIN_BYTES
-from .sdca_bucket import OBJ_CODES
+from .sdca_bucket import OBJ_CODES, c_entry, check_tensor
 
 #: shared-memory stages the replicated kernel's producer warps fill
 #: ahead of its chain warp (`kStages` in csrc/sdca_sparse_bucket.cu)
@@ -120,26 +118,6 @@ def sharded_fits_smem(nnz: int) -> bool:
     return sharded_smem_bytes(nnz) <= SMEM_OPTIN_BYTES
 
 
-def _fn(stem: str, argtypes: str):
-    """The C entry point `<stem>_launch`; argtypes: p pointer, i int,
-    f float, one letter each."""
-    fn = getattr(build.load(stem), f"{stem}_launch")
-    kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
-    fn.argtypes = [kinds[c] for c in argtypes]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _check(name, t, shape, dtype, device):
-    if (tuple(t.shape) != tuple(shape) or t.dtype != dtype
-            or t.device != device or not t.is_contiguous()):
-        raise ValueError(
-            f"{name}: expected a contiguous {dtype} tensor of shape "
-            f"{tuple(shape)} on {device}, got {t.dtype} "
-            f"{tuple(t.shape)} on {t.device}"
-            + ("" if t.is_contiguous() else " (not contiguous)"))
-
-
 def sdca_sparse_bucket_plain(obj: Objective, idx, val, yb, ab, qb, v0,
                              lam_n: float, sig: float):
     """The plain PyTorch version of `sdca_sparse_bucket_kernel`."""
@@ -189,7 +167,7 @@ def sdca_sparse_bucket_kernel(obj: Objective, idx, val, yb, ab, qb, v0,
         stages = torch.empty((W, region_words(B, nnz)), dtype=torch.float32,
                              device=idx.device)
         smem = 4 * _round4(nnz)
-    fn = _fn("sdca_sparse_bucket", "ppppppppp" "iiiii" "ff" "ii" "p")
+    fn = c_entry("sdca_sparse_bucket", "ppppppppp" "iiiii" "ff" "ii" "p")
     err = fn(idx.data_ptr(), val.data_ptr(), yb.data_ptr(), ab.data_ptr(),
              qb.data_ptr(), v0.data_ptr(), a_out.data_ptr(),
              v_out.data_ptr(), None if stages is None else stages.data_ptr(),
@@ -246,8 +224,8 @@ def sdca_sparse_gather_bucket(idxb, b: int, v_held, m0: int = 0, *,
     Wk, nb, B, nnz = idxb.shape
     Mh, d_loc = v_held.shape[1:]
     dev = idxb.device
-    _check("idxb", idxb, (Wk, nb, B, nnz), torch.int32, dev)
-    _check("v_held", v_held, (Wk, Mh, d_loc), torch.float32, dev)
+    check_tensor("idxb", idxb, (Wk, nb, B, nnz), torch.int32, dev)
+    check_tensor("v_held", v_held, (Wk, Mh, d_loc), torch.float32, dev)
     if (not 0 <= b < nb or Wk > 65_535 or m0 < 0
             or (m0 + Mh) * d_loc >= 2 ** 31):
         raise ValueError(
@@ -255,7 +233,7 @@ def sdca_sparse_gather_bucket(idxb, b: int, v_held, m0: int = 0, *,
             f"(at most 65,535), slices {m0}..{m0 + Mh - 1} of {d_loc} "
             f"features (ids must stay below 2^31)")
     out = torch.empty((Wk, B, nnz), dtype=torch.float32, device=dev)
-    fn = _fn("sdca_sparse_gather_bucket", "ppp" "iiiiiii" "p")
+    fn = c_entry("sdca_sparse_gather_bucket", "ppp" "iiiiiii" "p")
     err = fn(idxb.data_ptr(), v_held.data_ptr(), out.data_ptr(), Wk, nb, b,
              B * nnz, Mh, m0, d_loc,
              torch.cuda.current_stream(dev).cuda_stream)
@@ -269,15 +247,16 @@ def sdca_sparse_gather_bucket(idxb, b: int, v_held, m0: int = 0, *,
 
 
 def sdca_sparse_sharded_plain(obj: Objective, idxb, valb, yb, ab, qb, links,
-                              b: int, W, v_loc, lam_n: float, sig: float):
+                              b: int, W, v_loc, lam_n: float, sig: float,
+                              m0: int = 0):
     """The plain PyTorch version of `sdca_sparse_sharded_bucket`.
 
     It does not read `links`: it runs the scan of `core.sdca.sparse_scan`
     over the bucket's rows on two full-width vectors per block, one
     holding its worker's exchanged working set W (what the margins
-    read) and one holding the lane's slice (what the owned entries are
-    scattered into), so it checks the kernel's layout as well as its
-    arithmetic.
+    read) and one holding the lane's slice at its place in v (what the
+    owned entries are scattered into), so it checks the kernel's layout
+    as well as its arithmetic.
     """
     del links
     Wk, M, d_loc = v_loc.shape
@@ -292,11 +271,14 @@ def sdca_sparse_sharded_plain(obj: Objective, idxb, valb, yb, ab, qb, links,
 
     idx, val = per_lane(idxb[:, b].long()), per_lane(valb[:, b])
     y, a, q = (per_lane(t[:, b]) for t in (yb, ab, qb))
-    vw = torch.zeros((G, M * d_loc), dtype=torch.float32, device=dev)
+    span = max((m0 + M) * d_loc, int(idx.max()) + 1 if idx.numel() else 0)
+    vw = torch.zeros((G, span), dtype=torch.float32, device=dev)
     vw.scatter_(1, idx.reshape(G, -1), per_lane(W).reshape(G, -1))
-    vs = torch.zeros((Wk, M, M, d_loc), dtype=torch.float32, device=dev)
-    torch.diagonal(vs, dim1=1, dim2=2).copy_(v_loc.transpose(1, 2))
-    V = torch.cat([vw, vs.reshape(G, -1)])                  # (2G, d_pad)
+    vs = torch.zeros((Wk, M, span), dtype=torch.float32, device=dev)
+    for h in range(M):
+        lo = (m0 + h) * d_loc
+        vs[:, h, lo:lo + d_loc] = v_loc[:, h]
+    V = torch.cat([vw, vs.reshape(G, -1)])                  # (2G, span)
     a_new = torch.empty_like(a)
     for i in range(idx.shape[1]):
         ii, vv = idx[:, i], val[:, i]
@@ -311,15 +293,18 @@ def sdca_sparse_sharded_plain(obj: Objective, idxb, valb, yb, ab, qb, links,
             col = ii2[:, k:k + 1]
             V.scatter_(1, col, V.gather(1, col) + u2[:, k:k + 1])
         a_new[:, i] = a[:, i] + d
-    vs = V[G:].reshape(Wk, M, M, d_loc)
-    v_loc.copy_(torch.diagonal(vs, dim1=1, dim2=2).transpose(1, 2))
+    vs = V[G:].reshape(Wk, M, span)
+    for h in range(M):
+        lo = (m0 + h) * d_loc
+        v_loc[:, h] = vs[:, h, lo:lo + d_loc]
     return a_new.reshape(Wk, M, -1)
 
 
 def sdca_sparse_sharded_bucket(obj: Objective, idxb, valb, yb, ab, qb,
                                links, b: int, W, v_loc, lam_n: float,
-                               sig: float, source: str = "ad-hoc arrays"):
-    """Bucket `b`'s recursion on every lane, and the owned scatter.
+                               sig: float, source: str = "ad-hoc arrays",
+                               m0: int = 0):
+    """Bucket `b`'s recursion on every held lane, and the owned scatter.
 
     idxb/valb: (Wk, nb, B, nnz) int32/f32; yb/ab/qb: (Wk, nb, B) f32;
     links: (Wk, nb, 5, B*nnz) int32 from `ops.sharded_tiles`; W: (Wk, B,
@@ -327,14 +312,17 @@ def sdca_sparse_sharded_bucket(obj: Objective, idxb, valb, yb, ab, qb,
     its lanes: `sdca_sparse_gather_bucket(idxb, b, v_loc)` of this very
     v_loc (each entry the owner slice's own bits: the kernel's scatter
     relies on it, and with any other W only the plain version is
-    right); v_loc: (Wk, M, d_loc) f32, UPDATED IN PLACE (each lane adds
+    right); v_loc: (Wk, M, d_loc) f32, the slices of lanes m0 .. m0+M-1
+    (every lane, m0 = 0, on a stacked mesh; the rank's own, M = 1 and
+    m0 = its lane, on a process mesh), UPDATED IN PLACE (each lane adds
     its owned entries' updates into its slice, in visiting order).
-    Returns a_new (Wk, M, B): every lane's copy of the bucket's duals.
+    Returns a_new (Wk, M, B): every held lane's copy of the bucket's
+    duals.
     """
     global sharded_launches
     if idxb.device.type == "cpu":
         return sdca_sparse_sharded_plain(obj, idxb, valb, yb, ab, qb, links,
-                                         b, W, v_loc, lam_n, sig)
+                                         b, W, v_loc, lam_n, sig, m0)
     if idxb.device.type != "cuda":
         raise ValueError(
             f"sdca_sparse_sharded_bucket: unsupported device {idxb.device}")
@@ -349,9 +337,11 @@ def sdca_sparse_sharded_bucket(obj: Objective, idxb, valb, yb, ab, qb,
             ("links", links, (Wk, nb, LINK_PLANES, E), torch.int32),
             ("W", W, (Wk, B, nnz), f32),
             ("v_loc", v_loc, (Wk, M, d_loc), f32)):
-        _check(name, t, shape, dt, dev)
-    if not 0 <= b < nb:
-        raise ValueError(f"sparse tiles from {source}: bucket {b} of {nb}")
+        check_tensor(name, t, shape, dt, dev)
+    if not 0 <= b < nb or m0 < 0 or (m0 + M) * d_loc >= 2 ** 31:
+        raise ValueError(f"sparse tiles from {source}: bucket {b} of {nb}, "
+                         f"lanes {m0}..{m0 + M - 1} of {d_loc} features "
+                         f"(ids must stay below 2^31)")
     a_out = torch.empty((Wk, M, B), dtype=f32, device=dev)
     S = torch.empty((Wk * M, E), dtype=f32, device=dev)     # scratch
     rows, smem = None, sharded_smem_bytes(nnz)
@@ -359,18 +349,19 @@ def sdca_sparse_sharded_bucket(obj: Objective, idxb, valb, yb, ab, qb,
         rows = torch.empty((Wk * M, sharded_row_words(nnz)), dtype=f32,
                            device=dev)
         smem -= 4 * sharded_row_words(nnz)
-    fn = _fn("sdca_sparse_sharded_bucket", "ppppp" "pppppp" "iiiiiii" "ff"
-             "ii" "p")
+    fn = c_entry("sdca_sparse_sharded_bucket", "ppppp" "pppppp" "iiiiiiii"
+                 "ff" "ii" "p")
     err = fn(idxb.data_ptr(), valb.data_ptr(), yb.data_ptr(), ab.data_ptr(),
              qb.data_ptr(), links.data_ptr(), W.data_ptr(),
              v_loc.data_ptr(), a_out.data_ptr(), S.data_ptr(),
              None if rows is None else rows.data_ptr(),
-             Wk * M, M, nb, b, B, nnz, d_loc, lam_n, sig,
+             Wk * M, M, m0, nb, b, B, nnz, d_loc, lam_n, sig,
              OBJ_CODES[obj.name], smem,
              torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"sdca_sparse_sharded_bucket kernel launch failed: CUDA error "
-            f"{err} (Wk={Wk}, M={M}, B={B}, nnz={nnz}, d_loc={d_loc})")
+            f"{err} (Wk={Wk}, M={M}, m0={m0}, B={B}, nnz={nnz}, "
+            f"d_loc={d_loc})")
     sharded_launches += 1
     return a_out

@@ -22,7 +22,11 @@ operations of `core.engine.StackedMeshCollectives`) or a process mesh
     feature-sharded CUDA kernel pair), and 'model' joins the sync axes,
     so the ordered dv sum reassembles the slices.  Without
     feature_shard the model axis is more example lanes.  On a process
-    mesh only that last role is ported (ROADMAP A11b holds the others);
+    mesh every role runs one model lane a rank: dense TP sums the
+    lanes' packed [m0 | G] partials per bucket over 'model' between the
+    split pair's two launches (`csrc/sdca_bucket_tp.cu`), and sparse
+    slices all-gather each bucket's partial working sets over 'model'
+    between B3's one-lane gather and B4 on the rank's lane;
   * v replicas sync over 'data' (and 'model' when it carries examples
     or sparse slices) once per chunk, in f32 or, with compress_sync, by
     the int8 two-phase `engine.q_psum`.
@@ -156,29 +160,23 @@ def _worker_count(mesh: Mesh, scale: GLMScale) -> int:
 
 
 def _collectives(mesh: Mesh, scale: GLMScale):
-    """The mesh's collectives: `engine.StackedMeshCollectives` on a
-    stacked mesh (every role of the model axis), `engine.MeshCollectives`
-    on a process mesh (the model axis carrying examples)."""
+    """The mesh's collectives, in every role of the model axis:
+    `engine.StackedMeshCollectives` on a stacked mesh,
+    `engine.MeshCollectives` on a process mesh (one worker, or one model
+    lane of one, a rank)."""
     _, _, _, tp = _axes(mesh, scale)
     pods, model = mesh.shape["pod"], mesh.shape["model"]
     role = ("tp" if tp else "slices" if scale.feature_shard
             else "examples")
-    if isinstance(mesh, DistMesh):
-        if role != "examples":
-            what = ("dense tensor parallelism" if tp
-                    else "sparse feature sharding")
-            raise NotImplementedError(
-                f"{scale.name}: on a process mesh the model axis carries "
-                f"examples only; feature_shard ({what}) across processes "
-                f"is not ported yet (ROADMAP A11b)")
-        return engine.MeshCollectives(
-            mesh=mesh, compress_pod=scale.compress_pod,
-            deterministic=scale.deterministic)
     if tp and scale.d % model:
         raise ValueError(
             f"{scale.name}: dense tensor parallelism splits d={scale.d} "
             f"over model={model} lanes; d must be a multiple of it (the "
             f"reference's P('model') layout of X and v)")
+    if isinstance(mesh, DistMesh):
+        return engine.MeshCollectives(
+            mesh=mesh, compress_pod=scale.compress_pod,
+            deterministic=scale.deterministic, model_role=role)
     return engine.StackedMeshCollectives(
         pods=pods, lanes=_worker_count(mesh, scale) // pods,
         compress_pod=scale.compress_pod, model=model, model_role=role)
@@ -191,7 +189,7 @@ def _model_lanes(mesh: Mesh, scale: GLMScale) -> Optional[int]:
 
 
 def make_dense_epoch(scale: GLMScale, mesh: Mesh,
-                     obj: Objective = LOGISTIC):
+                     obj: Objective = LOGISTIC, *, split_tp: bool = False):
     """-> epoch fn (X, y, a, v, epoch) -> (X, y, a, v), as the
     reference's shard_map program takes and returns them.
 
@@ -199,12 +197,17 @@ def make_dense_epoch(scale: GLMScale, mesh: Mesh,
     columns are dealt to the example shards in (pod, data[, model])
     order, and the returned X holds the re-dealt columns.  On a process
     mesh they are this rank's shards (`glm_input_specs`, `local_shard`):
-    X (d, n_local), y/a (n_local,), v (d,) replicated.  Arrays are moved
-    to the mesh's device.  With feature_shard (stacked only) the model
-    lanes split the features (tensor parallelism; d must be a multiple
-    of the model axis): "torch" sums the lanes' partials per bucket in
-    lane order, "kernel" (and "auto" on the card) launches the dense
-    kernel on each worker's whole tile.
+    X (d, n_local), y/a (n_local,), v (d,) replicated; under tensor
+    parallelism X (d/M, n_local) and v (d/M,), the rank's model lane's
+    rows.  Arrays are moved to the mesh's device.  With feature_shard
+    the model lanes split the features (tensor parallelism; d must be a
+    multiple of the model axis): "torch" sums the lanes' partials per
+    bucket in lane order; "kernel" (and "auto" on the card) launches,
+    on a stacked mesh, the dense kernel on each worker's whole tile,
+    and on a process mesh the split pair, the partials summed over
+    'model' between its launches.  ``split_tp`` puts a stacked mesh's
+    workers on the split pair too (every lane held, the lane-ordered
+    sum): the process mesh's bitwise twin.
     """
     W = _worker_count(mesh, scale)
     spec = scale.engine_config(mesh)
@@ -223,7 +226,8 @@ def make_dense_epoch(scale: GLMScale, mesh: Mesh,
         blk, y, a, v = engine.sharded_epoch(
             obj, spec, coll, blk, y.reshape(P, K, -1), a.reshape(P, K, -1),
             v, int(epoch), lam=scale.lam, n_total=scale.n, workers=W,
-            model_lanes=_model_lanes(mesh, scale), device=dev)
+            model_lanes=_model_lanes(mesh, scale), split_tp=split_tp,
+            device=dev)
         X = blk.X.permute(2, 0, 1, 3).reshape(d, n)
         return X, y.reshape(n), a.reshape(n), v
 
@@ -239,10 +243,13 @@ def make_sparse_epoch(scale: GLMScale, mesh: Mesh,
     rows, y/a (n,), v (d,); rows are dealt to the example shards in
     (pod, data[, model]) order, and the returned rows are the re-dealt
     ones.  On a process mesh they are this rank's shards: idx/val
-    (n_local, nnz), y/a (n_local,), v (d,) replicated.  Arrays are moved
-    to the mesh's device.  With feature_shard (stacked only), the model
-    lanes own slices of v and the local solver is the feature-sharded
-    one ("kernel": the CUDA kernel pair; "torch": the masked scan).
+    (n_local, nnz), y/a (n_local,), v (d,) replicated (rows replicated
+    over 'model' under feature_shard).  Arrays are moved to the mesh's
+    device.  With feature_shard the model lanes own slices of v and the
+    local solver is the feature-sharded one ("kernel": the CUDA kernel
+    pair, on a process mesh B3 on the rank's slice, the working sets'
+    all-gather over 'model' and B4 on the rank's lane; "torch": the
+    masked scan).
     """
     W = _worker_count(mesh, scale)
     spec = scale.engine_config(mesh)
@@ -456,7 +463,7 @@ def estimator_epoch(est, mesh: Mesh, **overrides):
 
 
 def _as_mesh_feed(source, *, model_lanes, d_loc, verify, width,
-                  device) -> engine.MeshChunkFeed:
+                  device, lane=None, rows=None) -> engine.MeshChunkFeed:
     """Any streamable source -> a mesh chunk feed.
 
     Takes a `TileCache`, a `TileFeed` (its verify flag carries over), an
@@ -471,7 +478,7 @@ def _as_mesh_feed(source, *, model_lanes, d_loc, verify, width,
     def wrap(src, v):
         return engine.MeshChunkFeed(src, model_lanes=model_lanes,
                                     d_loc=d_loc, verify=v, width=width,
-                                    device=device)
+                                    lane=lane, rows=rows, device=device)
 
     if isinstance(source, engine.MeshChunkFeed):
         return source
@@ -483,7 +490,8 @@ def _as_mesh_feed(source, *, model_lanes, d_loc, verify, width,
             else:
                 source.feed = _as_mesh_feed(
                     inner, model_lanes=model_lanes, d_loc=d_loc,
-                    verify=verify, width=width, device=device)
+                    verify=verify, width=width, device=device, lane=lane,
+                    rows=rows)
         return source
     if isinstance(source, (TileCache, ArrayFeed)):
         return wrap(source, verify)
@@ -516,16 +524,22 @@ def make_streamed_epoch_mesh(scale: GLMScale, mesh: Mesh, source,
     alpha (n,) and v (d,) are global on either mesh.  On a process mesh
     each rank streams only its own buckets and the driver all-gathers
     alpha's columns at the epoch's end (`MeshStreamDriver.share_alpha`),
-    so every rank holds what the stacked mesh holds; a journal there is
-    not ported (ROADMAP A11b).  Feature-sharded sparse scales stream
-    slice-compacted per-lane feeds (`TileCache.slice_gather`): each
-    model lane ships only its slice's entries, and the step reassembles
-    exact rows on the device.
+    so every rank holds what the stacked mesh holds.  Under tensor
+    parallelism a rank streams only its lane's feature rows and trains
+    its slice of v, and the slices are all-gathered over 'model' at the
+    epoch's end.  Feature-sharded sparse scales stream slice-compacted
+    per-lane feeds (`TileCache.slice_gather`): each model lane ships
+    only its slice's entries (on a process mesh a rank compacts only
+    its own lane, and the step all-gathers the lanes' compactions over
+    'model'), and the step reassembles exact rows on the device.
 
     ``journal`` threads an `EpochJournal` (chunk-cursor crash resume,
-    bitwise); ``damp`` the health guard's dv_scale multiplier;
-    ``verify``/``width`` go to the feed.  The closure exposes ``.feed``
-    and ``.schedule``.
+    bitwise); on a process mesh each rank journals under
+    ``root/rank{r}`` (`resilience.MeshJournal`: a save is kept until
+    every rank has written the next, and a resume takes the least
+    cursor every rank holds).  ``damp`` is the health guard's dv_scale
+    multiplier; ``verify``/``width`` go to the feed.  The closure
+    exposes ``.feed`` and ``.schedule``.
     """
     from repro_torch.kernels import ops as kops
     ex_axes, _, _, tp = _axes(mesh, scale)
@@ -534,14 +548,20 @@ def make_streamed_epoch_mesh(scale: GLMScale, mesh: Mesh, source,
     coll = _collectives(mesh, scale)
     dist_mesh = isinstance(mesh, DistMesh)
     if dist_mesh and journal is not None:
-        raise NotImplementedError(
-            "a journal on a process mesh is not ported yet (ROADMAP A11b)")
+        from repro_torch.resilience.journal import MeshJournal
+        journal = MeshJournal.on_mesh(journal, mesh)
     sparse = scale.kind == "sparse"
     sliced = sparse and scale.feature_shard
     model_lanes = _model_lanes(mesh, scale)
+    lane, exchange = coll.model_exchange() if model_lanes else (None, None)
     d_loc = kops.sparse_slice_width(scale.d, model_lanes) if sliced else None
+    rows = None
+    if tp and lane is not None:
+        d_tp = scale.d // model_lanes
+        rows = (lane * d_tp, (lane + 1) * d_tp)
     feed = _as_mesh_feed(source, model_lanes=model_lanes if sliced else None,
                          d_loc=d_loc, verify=verify, width=width,
+                         lane=lane if sliced else None, rows=rows,
                          device=mesh.device)
     mesh_feed = getattr(feed, "feed", feed)     # inside a ResilientChunkFeed
     if (feed.n, feed.bucket, mesh_feed.nnz) != (
@@ -553,12 +573,14 @@ def make_streamed_epoch_mesh(scale: GLMScale, mesh: Mesh, source,
     solver = engine.make_local_solver(
         scale.local_solver, obj, scale.lam * scale.n, spec.sigma_prime(W),
         bucket=scale.bucket, sparse=sparse, model_lanes=model_lanes,
-        device=mesh.device)
+        lane=lane, exchange=exchange, device=mesh.device)
     dv_scale = (1.0 / W if scale.aggregation == "averaging"
                 else 1.0) * damp
     step = engine.make_mesh_streamed_step(
         coll, solver, spec.algo, nnz=scale.nnz if sliced else None,
-        dv_scale=dv_scale)
+        dv_scale=dv_scale,
+        gather_lanes=coll.gather_model if sliced and lane is not None
+        else None)
     sched = engine.MeshSchedule(
         scale.n // scale.bucket, pods=mesh.shape["pod"],
         data=mesh.shape["data"], model=mesh.shape["model"],
@@ -571,9 +593,13 @@ def make_streamed_epoch_mesh(scale: GLMScale, mesh: Mesh, source,
     def epoch_fn(alpha, v, epoch, *, stats=None):
         alpha, v = (torch.as_tensor(t, dtype=torch.float32,
                                     device=mesh.device) for t in (alpha, v))
+        if rows is not None:                 # this lane's rows of v
+            v = v[rows[0]:rows[1]]
         alpha, v = engine.run_epoch_streamed(
             driver, feed, step, plan, spec.algo, alpha, v, epoch,
             journal=journal, stats=stats)
+        if rows is not None:
+            v = coll.gather_model(v).reshape(-1)
         return driver.share_alpha(alpha, epoch), v
 
     epoch_fn.feed = feed

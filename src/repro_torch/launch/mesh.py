@@ -20,8 +20,10 @@ Two meshes carry it here:
     `torch.distributed` process group, ranks laid out row-major over
     (pod, data, model) as `jax.make_mesh` lays out devices; the
     collectives are `core.engine.MeshCollectives` over the mesh's
-    per-axis groups.  The model axis carries examples there (the roles
-    that carry slices are ROADMAP A11b).
+    per-axis groups, in every role of the model axis: more example
+    lanes, or one model lane a rank of a feature-sharded worker (dense
+    tensor parallelism, sparse slices), the lanes trading each
+    bucket's partials or working sets over 'model'.
 
 `H2D_BW` and `HBM_BW` are the card's host-link and memory rates, defined
 once in `core.planner` (its streamed-plan score) and re-exported here.

@@ -19,7 +19,8 @@ Four pillars, each opt-in and free when unused:
                           every recovery path, with a JSON event log
                           (``$REPRO_FAULT_LOG``).
 
-On a mesh, `ResilientChunkFeed` rebinds a rebuilt cache into its
+On a process mesh `MeshJournal` keeps each rank's journal and agrees
+the world's resume cursor.  On a mesh, `ResilientChunkFeed` rebinds a rebuilt cache into its
 `engine.MeshChunkFeed`, so the mesh layout and the compaction width
 survive a quarantine.
 """
@@ -28,10 +29,10 @@ from .faultinject import (FaultInjectedIOError, FaultInjector, FaultyFeed,
                           parse_schedule)
 from .feed import ResilientChunkFeed
 from .health import HealthMonitor, HealthPolicy
-from .journal import EpochJournal
+from .journal import EpochJournal, MeshJournal
 
 __all__ = [
-    "EpochJournal", "ResilientChunkFeed", "HealthMonitor", "HealthPolicy",
+    "EpochJournal", "MeshJournal", "ResilientChunkFeed", "HealthMonitor", "HealthPolicy",
     "FaultInjector", "FaultyFeed", "SimulatedCrash",
     "FaultInjectedIOError", "KernelBuildError", "parse_schedule",
     "log_event",

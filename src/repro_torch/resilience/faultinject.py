@@ -19,7 +19,10 @@ Schedule grammar (semicolon-separated specs)::
     kinds:   fetch-error   raise a transient OSError on the Nth fetch
              nan-chunk     poison the Nth fetched chunk's labels w/ NaN
              kill          raise SimulatedCrash at an epoch/chunk
-                           boundary (chunk-level needs a journal)
+                           boundary (chunk-level needs a journal; on a
+                           process mesh arg presave / postsave puts it
+                           before / after the rank's chunk record,
+                           `journal.MeshJournal`)
              kernel-fail   raise KernelBuildError when the epoch runs
                            on a solver other than "torch"
              nan-epoch     poison alpha/v after the epoch completes
@@ -169,10 +172,12 @@ class FaultInjector:
     def log(self, event: str, **fields) -> None:
         log_event(event, log_path=self.log_path, **fields)
 
-    def _take(self, kind: str, *, epoch=None, chunk=None, nth=None
-              ) -> Optional[FaultSpec]:
+    def _take(self, kind: str, *, epoch=None, chunk=None, nth=None,
+              at: str = "") -> Optional[FaultSpec]:
         for s in self.specs:
             if s.kind != kind or not s.live():
+                continue
+            if kind == "kill" and s.arg != at:
                 continue
             if s.nth is not None and not (
                     nth is not None and s.nth <= nth < s.nth + s.times):
@@ -205,9 +210,14 @@ class FaultInjector:
             return "nan"
         return None
 
-    def maybe_kill(self, epoch: int, chunk: Optional[int] = None) -> None:
-        if self._take("kill", epoch=int(epoch), chunk=chunk) is not None:
-            self.log("inject.kill", epoch=int(epoch), chunk=chunk)
+    def maybe_kill(self, epoch: int, chunk: Optional[int] = None, *,
+                   at: str = "") -> None:
+        """Raise `SimulatedCrash` when a live kill matches (epoch, chunk)
+        and is placed ``at`` this point (its arg; "" the boundary)."""
+        if self._take("kill", epoch=int(epoch), chunk=chunk,
+                      at=at) is not None:
+            self.log("inject.kill", epoch=int(epoch), chunk=chunk,
+                     **({"at": at} if at else {}))
             raise SimulatedCrash(
                 f"injected kill at epoch {epoch}, chunk {chunk}")
 

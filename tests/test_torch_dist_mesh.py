@@ -13,8 +13,10 @@ streamed=True)`, and writes what it holds after each epoch.  Here the
 same scales run on the `StackedMesh`: deterministic results are
 `torch.equal` (the shards put together by `assemble_shards`), the
 all-reduce (`deterministic=False`) within rtol 1e-6, the int8 pod
-reduce and two-phase sync bitwise to the stacked int8 wire, and a mesh
-whose model axis carries slices raises, naming ROADMAP A11b.  The spawn
+reduce and two-phase sync bitwise to the stacked int8 wire, and what a
+process mesh still refuses (an indivisible TP split, a mesh larger than
+the world; the roles that carry slices are
+`tests/test_torch_dist_slices.py`'s).  The spawn
 target is a script written to ``tmp_path``: it imports neither this
 module nor JAX nor the reference.  About 12 s on the CPU (ridge, whose
 delta is closed-form: what is held here is the wire).
@@ -151,16 +153,20 @@ for tag, (shape, kind, knobs, runs) in spec["cases"].items():
         out[f"{tag}/session/a"] = s.alpha.numpy()
         out[f"{tag}/session/v"] = s.v.numpy()
 
-for kind in ("dense", "sparse"):
-    mesh = mesh_of((1, 2, 2))
-    sc = glm.GLMScale("sliced", kind, n=N, d=SD, nnz=NNZ, bucket=B,
-                      chunks=2, feature_shard=True)
+refusals = {
+    "tp_indivisible": lambda: glm.make_dense_epoch(glm.GLMScale(
+        "tp", "dense", n=N, d=D + 1, bucket=B, chunks=2,
+        feature_shard=True), mesh_of((1, 2, 2))),
+    "mesh_too_large": lambda: make_dist_mesh(
+        pod=2, data=2, model=2, backend="gloo", device="cpu", rank=rank,
+        world_size=world),
+}
+for name, fn in refusals.items():
     try:
-        (glm.make_sparse_epoch if kind == "sparse"
-         else glm.make_dense_epoch)(sc, mesh)
-        out[f"refusal/{kind}"] = np.array("no error")
-    except NotImplementedError as err:
-        out[f"refusal/{kind}"] = np.array(str(err))
+        fn()
+        out[f"refusal/{name}"] = np.array("no error")
+    except ValueError as err:
+        out[f"refusal/{name}"] = np.array(str(err))
 out["coords"] = np.array(mesh_of((2, 2, 1)).coords)
 out["foreign"] = np.array(sorted(
     m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")),
@@ -338,13 +344,16 @@ def test_dist_session_equals_stacked(ranks, tag):
 
 
 def test_dist_model_slices_raise(ranks):
-    """A process mesh whose model axis carries slices (dense TP, sparse
-    feature sharding) raises NotImplementedError naming ROADMAP A11b."""
+    """A process mesh whose model axis carries slices runs every role
+    (`tests/test_torch_dist_slices.py`); what it still refuses, on a live
+    process group: dense tensor parallelism whose d is not a multiple of
+    the model axis (the reference's P('model') layout of X and v), and a
+    mesh larger than the world."""
     for r in ranks:
-        for kind, what in (("dense", "tensor parallelism"),
-                           ("sparse", "feature sharding")):
-            msg = str(r[f"refusal/{kind}"])
-            assert "A11b" in msg and what in msg, msg
+        msg = str(r["refusal/tp_indivisible"])
+        assert "d=17" in msg and "multiple" in msg, msg
+        msg = str(r["refusal/mesh_too_large"])
+        assert "needs 8 ranks" in msg and "has 4" in msg, msg
 
 
 def test_dist_ranks_laid_out_row_major_and_import_no_reference(ranks):

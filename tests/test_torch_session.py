@@ -179,17 +179,23 @@ def test_kernel_solver_on_cpu_raises():
 
 
 # a process mesh whose model axis carries slices (dense tensor
-# parallelism) is still unported: ROADMAP A11b.  The mesh is only
-# described here; the refusal comes before any collective.
+# parallelism) was the front door's last unported option (ROADMAP A11,
+# then A11b); it is taken now.  The mesh is only described here:
+# building the Session runs no collective.
 @pytest.mark.parametrize("kw,item", [(
     {"mesh": DistMesh(1, 1, 2, 0, torch.device("cpu"), "gloo", {}),
      "streamed": True,
      "cfg": EngineConfig.make(pods=1, lanes=1, bucket=8,
                               feature_shard=True)}, "A11")])
 def test_unported_options_name_their_queue_item(kw, item):
+    """The option ROADMAP `item` held is taken: the Session streams this
+    rank's model lane of a tensor-parallel worker, its feed gathering
+    only the lane's feature rows; its epochs run on 2 processes
+    (`tests/test_torch_dist_slices.py`)."""
     data, dkw = _data("dense")
-    with pytest.raises(NotImplementedError, match=item):
-        Session(data, device="cpu", **dkw, **kw)
+    s = Session(data, device="cpu", **dkw, **kw)
+    assert s.mesh_feed.rows == (0, s.d // 2)
+    assert s._epoch_fn.schedule.lanes == 1
 
 
 @pytest.mark.parametrize("knob", ["health", "journal_dir", "faults"])
