@@ -561,6 +561,7 @@ class Session:
         while self.epochs_done < until:
             try:
                 rec = self.epoch()
+            # audit: except-ok a health monitor absorbs it, else re-raised
             except Exception as err:
                 # only a health monitor may absorb an epoch's failure: it
                 # rolls back and remediates, and re-raises when the

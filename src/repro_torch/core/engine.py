@@ -248,7 +248,6 @@ def make_local_solver(kind: str, obj: Objective, lam_n: float, sig: float,
     the process mesh's stacked twin; the stacked mesh's own "kernel" TP
     route stays the whole-tile B1.
     """
-    from repro_torch.core import planner
     from repro_torch.kernels import ops as kops
     device = torch.device(device)
     if kind == "auto":
@@ -261,13 +260,14 @@ def make_local_solver(kind: str, obj: Objective, lam_n: float, sig: float,
             f"local_solver='kernel' launches a CUDA kernel and needs CUDA "
             f"tensors, got device {device}; use local_solver='torch' or "
             f"'auto' on the CPU")
+    if kind == "kernel":
+        return kernel_solver(obj, lam_n, sig, bucket=bucket, sparse=sparse,
+                             model_lanes=model_lanes, lane=lane,
+                             exchange=exchange, split_tp=split_tp)
     lam_t = torch.tensor(lam_n, dtype=torch.float32, device=device)
     sig_t = torch.tensor(sig, dtype=torch.float32, device=device)
 
     if sparse and model_lanes is not None:
-        if kind == "kernel":
-            return sparse_sharded_kernel_solver(obj, lam_n, sig, bucket,
-                                                model_lanes, lane, exchange)
         held = (torch.arange(model_lanes, device=device) if lane is None
                 else torch.tensor([lane], device=device))
 
@@ -288,13 +288,37 @@ def make_local_solver(kind: str, obj: Objective, lam_n: float, sig: float,
         return solve
 
     if sparse:
-        if kind == "torch":
-            def solve(data, y, a, v):
-                idx, val = data
-                return sdca.sparse_local_subepoch(obj, idx, val, y, a, v,
-                                                  lam_t, sig_t)
-            return solve
+        def solve(data, y, a, v):
+            idx, val = data
+            return sdca.sparse_local_subepoch(obj, idx, val, y, a, v,
+                                              lam_t, sig_t)
+        return solve
 
+    lanes = model_lanes if lane is None else 1
+
+    def solve(X, y, a, v):
+        return sdca.dense_local_subepoch(obj, X, y, a, v, lam_t, sig_t,
+                                         bucket, model_lanes=lanes,
+                                         reduce=exchange)
+    return solve
+
+
+def kernel_solver(obj: Objective, lam_n: float, sig: float, *,
+                  bucket: int = 1, sparse: bool = False,
+                  model_lanes: Optional[int] = None,
+                  lane: Optional[int] = None, exchange=None,
+                  split_tp: bool = False) -> LocalSolver:
+    """The "kernel" LocalSolver of `make_local_solver` (which checks the
+    device first), its arguments' meanings the same.  Its wrappers
+    launch the CUDA kernels on CUDA tensors and run their plain versions
+    on CPU tensors: the static audit drives the kernels' route on the
+    CPU through it."""
+    from repro_torch.core import planner
+    from repro_torch.kernels import ops as kops
+    if sparse and model_lanes is not None:
+        return sparse_sharded_kernel_solver(obj, lam_n, sig, bucket,
+                                            model_lanes, lane, exchange)
+    if sparse:
         def solve(data, y, a, v):
             idx, val = data
             _, why = planner.route_sparse(idx.shape[-2], idx.shape[-1],
@@ -304,15 +328,6 @@ def make_local_solver(kind: str, obj: Objective, lam_n: float, sig: float,
             return kops.sdca_sparse_bucket_subepoch(
                 obj, idx, val, y, a, v, lam_n, sig, bucket=bucket,
                 source="resident arrays")
-        return solve
-
-    if kind == "torch":
-        lanes = model_lanes if lane is None else 1
-
-        def solve(X, y, a, v):
-            return sdca.dense_local_subepoch(obj, X, y, a, v, lam_t, sig_t,
-                                             bucket, model_lanes=lanes,
-                                             reduce=exchange)
         return solve
     if model_lanes is not None and (lane is not None or split_tp):
         return dense_tp_kernel_solver(obj, lam_n, sig, bucket, model_lanes,
@@ -625,17 +640,20 @@ class MeshCollectives(SimCollectives):
         world), on this rank's device."""
         x = self._host(t)
         out = [torch.empty_like(x) for _ in range(self.mesh.group_size(axis))]
+        # audit: collective-ok data movement; gather-sums add in rank order
         dist.all_gather(out, x, group=self.mesh.group(axis))
         return [o.to(t.device) for o in out]
 
     def _all_to_all(self, t: Tensor, axis: str) -> Tensor:
         x = self._host(t)
         out = torch.empty_like(x)
+        # audit: collective-ok data movement: the bucket re-deal over 'data'
         dist.all_to_all_single(out, x, group=self.mesh.group(axis))
         return out.to(t.device)
 
     def _all_reduce(self, t: Tensor, axis: str) -> Tensor:
         x = t.to("cpu" if self.mesh.stages else t.device, copy=True)
+        # audit: collective-ok unordered sum, only when not deterministic
         dist.all_reduce(x, group=self.mesh.group(axis))
         return x.to(t.device)
 
@@ -653,6 +671,7 @@ class MeshCollectives(SimCollectives):
         if not self.mesh.stages:
             out = torch.empty((L,) + tuple(t.shape), dtype=t.dtype,
                               device=t.device)
+            # audit: collective-ok data movement: stacked in rank order
             dist.all_gather(list(out.unbind(0)), t.contiguous(),
                             group=self.mesh.group(axis))
             return out
@@ -664,6 +683,7 @@ class MeshCollectives(SimCollectives):
                             pin_memory=True))
         src, dst = self._pinned[key]
         src.copy_(t)
+        # audit: collective-ok data movement: stacked in rank order
         dist.all_gather(list(dst.unbind(0)), src,
                         group=self.mesh.group(axis))
         return dst.to(t.device)

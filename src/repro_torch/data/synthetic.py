@@ -5,14 +5,27 @@ synthetic`): for the same arguments and seed they return byte-identical
 arrays, so both packages train on the same data.
 
   make_dense_classification  — dense, X (d, n), y in {-1, +1}
+  make_dense_regression      — dense, X (d, n), real-valued y (ridge)
   make_sparse_classification — padded-CSR (idx, val), optional Zipf-ish
                                feature-popularity skew (criteo-like)
+
+and the stand-ins for the paper's three evaluation datasets, whose
+character matches the originals at a documented scale factor:
+
+  criteo_like   — sparse binary classification (criteo-kaggle: 45M x 1M,
+                  ~39 nnz/example, skewed feature popularity)
+  higgs_like    — dense, narrow (HIGGS: 11M x 28)
+  epsilon_like  — dense, wide (epsilon: 400k x 2000, normalized)
 """
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["make_dense_classification", "make_sparse_classification"]
+__all__ = [
+    "make_dense_classification", "make_dense_regression",
+    "make_sparse_classification", "criteo_like", "higgs_like",
+    "epsilon_like",
+]
 
 
 def _labels_from_logits(rng, logits):
@@ -30,6 +43,17 @@ def make_dense_classification(n: int = 100_000, d: int = 100, *,
         X /= np.maximum(np.linalg.norm(X, axis=0, keepdims=True), 1e-12)
     w = rng.standard_normal(d).astype(np.float32)
     y = _labels_from_logits(rng, 4.0 * (w @ X) / np.linalg.norm(w))
+    return X, y.astype(np.float32)
+
+
+def make_dense_regression(n: int = 50_000, d: int = 100, *, seed: int = 0,
+                          noise: float = 0.1):
+    """Dense ridge data: X (d, n) with unit columns, y = w @ X + noise."""
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((d, n)).astype(np.float32)
+    X /= np.maximum(np.linalg.norm(X, axis=0, keepdims=True), 1e-12)
+    w = rng.standard_normal(d).astype(np.float32)
+    y = w @ X + noise * rng.standard_normal(n)
     return X, y.astype(np.float32)
 
 
@@ -59,3 +83,20 @@ def make_sparse_classification(n: int = 100_000, d: int = 1_000, *,
     logits = (val * w[idx]).sum(axis=1) * 4.0
     y = _labels_from_logits(rng, logits)
     return (idx, val), y.astype(np.float32), d
+
+
+# -- stand-ins for the paper's three evaluation datasets -------------------
+
+def criteo_like(n: int = 131_072, d: int = 65_536, *, seed: int = 1):
+    """criteo-kaggle stand-in: sparse, skewed, ~39 nnz.  Scale ~1/350."""
+    return make_sparse_classification(n=n, d=d, nnz=39, seed=seed, skew=1.1)
+
+
+def higgs_like(n: int = 262_144, *, seed: int = 2):
+    """HIGGS stand-in: dense, 28 features.  Scale ~1/42 in n."""
+    return make_dense_classification(n=n, d=28, seed=seed)
+
+
+def epsilon_like(n: int = 65_536, *, seed: int = 3):
+    """epsilon stand-in: dense, 2000 normalized features.  Scale ~1/6."""
+    return make_dense_classification(n=n, d=2_000, seed=seed)

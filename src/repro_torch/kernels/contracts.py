@@ -39,8 +39,8 @@ KERNEL_CONTRACTS: dict[str, dict] = {
     # lane-ordered sum over 'model') the recursion and each lane's
     # update of its rows of v; B1's sums and recursion
     # (csrc/dense_recursion.cuh), built with the common flags as B1 is.
-    # Tiles in global memory; the solve's a, y, q and deltas in 16 B
-    # of static-size dynamic shared memory a coordinate.
+    # Tiles in global memory.  The partials use no shared memory (a
+    # static size of 0).
     "sdca_bucket.sdca_bucket_tp_partials": {
         "source": "csrc/sdca_bucket_tp.cu",
         "entry": "sdca_bucket_tp_partials_launch",
@@ -49,17 +49,21 @@ KERNEL_CONTRACTS: dict[str, dict] = {
         "smem_estimate": None,
         "replaces": "src/repro/kernels/sdca_bucket.py:102",
     },
+    # the pair's solve: the bucket's a, y, q and deltas in dynamic
+    # shared memory, 16 B a coordinate (`tp_solve_smem_bytes`)
     "sdca_bucket.sdca_bucket_tp_solve": {
         "source": "csrc/sdca_bucket_tp.cu",
         "entry": "sdca_bucket_tp_solve_launch",
         "nvcc_extra": (),
         "misfit": "repro_torch.kernels.ops:dense_kernel_misfit",
-        "smem_estimate": None,
+        "smem_estimate": "repro_torch.kernels.sdca_bucket:tp_solve_smem_bytes",
         "replaces": "src/repro/kernels/sdca_bucket.py:102",
     },
     # sparse replicated kernel: v replicas in global memory, two stages
     # of a bucket's links and working set in shared memory (in global
-    # memory for a bucket too large for it).  -fmad=false keeps every
+    # memory for a bucket too large for it); the chain's row of products
+    # stays in shared memory, so a row past 58,112 nonzeros is a misfit
+    # (`row_fits_smem`).  -fmad=false keeps every
     # multiply and add separate: the kernel is bitwise equal to the
     # plain scan, which has no fused operations.
     "sdca_sparse_bucket.sdca_sparse_bucket_kernel": {
@@ -79,7 +83,8 @@ KERNEL_CONTRACTS: dict[str, dict] = {
     # live in global memory; the recursion places one row's operands in
     # dynamic shared memory (in a global scratch row for a row too wide
     # for it), and is built with -fmad=false as the replicated kernel
-    # is (the pair is bitwise equal to the scan).
+    # is (the pair is bitwise equal to the scan).  The gather uses no
+    # shared memory (a static size of 0).
     "sdca_sparse_bucket.sdca_sparse_gather_bucket": {
         "source": "csrc/sdca_sparse_gather_bucket.cu",
         "entry": "sdca_sparse_gather_bucket_launch",
@@ -124,7 +129,8 @@ KERNEL_CONTRACTS: dict[str, dict] = {
     },
     # RG-LRU recurrence, one thread per (batch row, channel); -fmad=false
     # keeps each multiply and add rounding as the plain version's
-    # separate elementwise operations do.
+    # separate elementwise operations do.  Its a and b rings are static
+    # shared memory (2 x kStages x kStageFloats floats, 32 KiB).
     "rglru.rglru_kernel": {
         "source": "csrc/rglru.cu",
         "entry": "rglru_launch",

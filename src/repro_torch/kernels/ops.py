@@ -40,6 +40,7 @@ class MisfitCode:
     """Stable enum-style codes for kernel misfit reasons."""
     BUCKET_INDIVISIBLE = "BUCKET_INDIVISIBLE"   # B does not divide n_local
     BUCKET_CAP = "BUCKET_CAP"                   # dense recursion cap B<=512
+    SMEM_ROW = "SMEM_ROW"                       # a row's products over smem
 
 
 class Misfit(str):
@@ -75,8 +76,11 @@ def sparse_solver_plan(n_local: int, nnz: int, d: int, bucket: int, *,
     scratch in global memory, one row's operands in shared memory where
     they fit) or "torch" with the misfit.  Prefers the replicated kernel
     (no per-bucket exchange) when its stages fit shared memory, and on
-    a single lane.  Only bucket divisibility misfits; d never misfits
-    (the card's 50 MB L2 holds the hot entries of v).
+    a single lane.  Bucket divisibility misfits, and on one lane a row
+    wider than the replicated kernel's row of products in shared memory
+    (`sdca_sparse_bucket.row_fits_smem`; the sharded kernel takes any
+    width); d never misfits (the card's 50 MB L2 holds the hot entries
+    of v).
     """
     del d
     if bucket <= 0 or n_local % bucket:
@@ -85,6 +89,12 @@ def sparse_solver_plan(n_local: int, nnz: int, d: int, bucket: int, *,
             f"bucket={bucket} does not divide n_local={n_local}")
     if model_lanes > 1 and not sdca_sparse_bucket.fits_smem(bucket, nnz):
         return "kernel-sharded", None
+    if not sdca_sparse_bucket.row_fits_smem(nnz):
+        return "torch", Misfit(
+            MisfitCode.SMEM_ROW,
+            f"nnz={nnz}: the replicated kernel keeps a row's products in "
+            f"shared memory, above the opt-in past 58,112 nonzeros; a "
+            f"layout with model lanes takes the sharded kernel")
     return "kernel", None
 
 

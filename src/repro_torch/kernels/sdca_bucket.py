@@ -65,6 +65,14 @@ def smem_layout(B: int, d: int) -> tuple[bool, bool, int]:
     return x_in, g_in, used + (gram if g_in else 0)
 
 
+def tp_solve_smem_bytes(B: int) -> int:
+    """Dynamic shared memory of one `sdca_bucket_tp_solve` block: the
+    bucket's a, y, q and deltas (4 B each a coordinate), as
+    csrc/sdca_bucket_tp.cu's launcher sizes it (8 KiB at `MAX_BUCKET`,
+    within the 48 KiB a launch takes without opting in)."""
+    return 4 * B * 4
+
+
 def c_entry(stem: str, argtypes: str, entry: str = ""):
     """The C entry point of `csrc/<stem>.cu` (``entry``, by default
     ``<stem>_launch``), built at first use; argtypes: p pointer, i int,

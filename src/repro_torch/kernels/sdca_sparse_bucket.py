@@ -93,6 +93,14 @@ def fits_smem(B: int, nnz: int) -> bool:
     return smem_bytes(B, nnz) <= SMEM_OPTIN_BYTES
 
 
+def row_fits_smem(nnz: int) -> bool:
+    """Whether the chain's row of products fits shared memory, where it
+    stays in both layouts: up to 58,112 nonzeros at the H100's opt-in;
+    a wider row is a misfit of the replicated kernel
+    (`ops.sparse_solver_plan`)."""
+    return 4 * _round4(nnz) <= SMEM_OPTIN_BYTES
+
+
 #: products per published chunk of the sharded kernel's row
 #: (`kChunk` in csrc/sdca_sparse_sharded_bucket.cu)
 SHARDED_CHUNK = 256
@@ -151,6 +159,11 @@ def sdca_sparse_bucket_kernel(obj: Objective, idx, val, yb, ab, qb, v0,
             f"sdca_sparse_bucket_kernel: unsupported device {idx.device}")
     W, nb, B, nnz = idx.shape
     d_pad = v0.shape[-1]
+    if not row_fits_smem(nnz):
+        raise ValueError(
+            f"sdca_sparse_bucket_kernel: rows of {nnz} nonzeros need "
+            f"{4 * _round4(nnz)} B of shared memory for their products, "
+            f"above the {SMEM_OPTIN_BYTES}-byte opt-in")
     for name, t, shape in (("val", val, (W, nb, B, nnz)),
                            ("yb", yb, (W, nb, B)), ("ab", ab, (W, nb, B)),
                            ("qb", qb, (W, nb, B)), ("v0", v0, (W, d_pad))):

@@ -178,11 +178,13 @@ class MeshJournal(EpochJournal):
         import torch.distributed as dist
         dev = "cpu" if self.mesh.backend == "gloo" else self.mesh.device
         t = torch.tensor([int(value)], dtype=torch.int64, device=dev)
+        # audit: collective-ok integer MIN of cursors: agreement, no sum
         dist.all_reduce(t, op=dist.ReduceOp.MIN)
         return int(t.item())
 
     def _barrier(self) -> None:
         import torch.distributed as dist
+        # audit: collective-ok no rank drops old records before all saved
         dist.barrier()
 
     def _records(self, prefix: str) -> dict[int, pathlib.Path]:

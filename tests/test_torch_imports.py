@@ -1,9 +1,10 @@
 """The port imports neither JAX nor the reference package.
 
-Parses every module of `src/repro_torch/` (the `launch/` package
-included), `chip_smoke.py`, `tools/torch_breakdown.py`,
-`tools/same_timer.py`, `tools/streamed_ab.py` and
-`tools/mesh_dist_rank.py` (the process mesh's rank program) with `ast`
+Parses every module of `src/repro_torch/` (the `launch/` and
+`analysis/` packages and `optim/lbfgs.py` included), `chip_smoke.py`,
+`tools/torch_breakdown.py`, `tools/same_timer.py`, `tools/streamed_ab.py`,
+`tools/mesh_dist_rank.py` (the process mesh's rank program) and
+`tools/audit_torch.py` (the port's audit CLI) with `ast`
 and fails on any import of `jax` or `repro` (other than `repro_torch`),
 at any depth: inside functions too.
 """
@@ -18,7 +19,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tools" / "torch_breakdown.py",
     ROOT / "tools" / "same_timer.py", ROOT / "tools" / "streamed_ab.py",
-    ROOT / "tools" / "mesh_dist_rank.py"]
+    ROOT / "tools" / "mesh_dist_rank.py", ROOT / "tools" / "audit_torch.py"]
 
 
 def _forbidden(mod: str) -> bool:
@@ -74,7 +75,16 @@ def test_new_modules_are_checked():
             "src/repro_torch/resilience/health.py",
             "src/repro_torch/data/cache.py",
             "src/repro_torch/core/engine.py",
-            "tools/mesh_dist_rank.py"} <= names
+            "src/repro_torch/optim/lbfgs.py",
+            "src/repro_torch/analysis/__init__.py",
+            "src/repro_torch/analysis/rules.py",
+            "src/repro_torch/analysis/config.py",
+            "src/repro_torch/analysis/lint.py",
+            "src/repro_torch/analysis/budget.py",
+            "src/repro_torch/analysis/trace.py",
+            "src/repro_torch/analysis/selftest.py",
+            "src/repro_torch/analysis/runner.py",
+            "tools/mesh_dist_rank.py", "tools/audit_torch.py"} <= names
 
 
 def test_every_kernel_source_is_registered():
