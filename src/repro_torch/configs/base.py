@@ -1,10 +1,12 @@
 """ArchConfig: one dataclass describes every architecture.
 
 A copy of the reference's `configs/base.py` with `dtype` a
-`torch.dtype`.  Only the configurations whose blocks the port runs
-(`attn` and `rec`: recurrentgemma-2b and smollm-360m) are registered;
-asking for any other of the reference's architectures raises
-`NotImplementedError` (ROADMAP A16 lists what is left).
+`torch.dtype`, without the reference's mesh and optimizer fields
+(`zero`, `shard_resid`, `layout`, `opt_dtype`: the port serves on one
+card).  The decoder-only configurations are registered: GQA / local
+attention, MLA, MoE and RG-LRU blocks.  Asking for one of the
+reference's other architectures raises `NotImplementedError` naming
+what it waits on (ROADMAP A16 lists what is left).
 """
 from __future__ import annotations
 
@@ -14,13 +16,15 @@ from typing import Optional, Tuple
 
 import torch
 
-#: the reference registry's plain full-attention GQA configs: every
-#: block they use is ported, but they are not registered yet
-UNREGISTERED_GQA = ("granite-20b", "internlm2-20b")
-#: the reference registry's other architectures, whose blocks are not
-#: ported yet
-UNPORTED = ("deepseek-v2-lite-16b", "kimi-k2-1t-a32b", "minicpm3-4b",
-            "phi-3-vision-4.2b", "whisper-base", "xlstm-1.3b")
+#: the reference registry's architectures that are not ported yet, and
+#: what each waits on
+UNPORTED = {
+    "xlstm-1.3b": "its mLSTM and sLSTM blocks",
+    "whisper-base": "its encoder-decoder stack with the audio frontend, "
+                    "layernorm and learned positions",
+    "phi-3-vision-4.2b": "its vision frontend (patch embeddings ahead of "
+                         "the tokens)",
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,17 +114,10 @@ def _lookup(name: str):
     _ensure_loaded()
     if name in _REGISTRY:
         return _REGISTRY[name]
-    if name in UNREGISTERED_GQA:
-        raise NotImplementedError(
-            f"{name!r} is a full-attention GQA config whose blocks the port "
-            f"runs, but it is not registered yet: it waits on ROADMAP A16 "
-            f"step 1 and on a bf16 tensor-core build of flash attention at "
-            f"head width 128")
     if name in UNPORTED:
         raise NotImplementedError(
-            f"{name!r} is not ported to repro_torch yet: its blocks (MLA, "
-            f"MoE, xLSTM, encoder-decoder or a frontend) wait in ROADMAP "
-            f"A16")
+            f"{name!r} is not ported to repro_torch yet: {UNPORTED[name]} "
+            f"wait in ROADMAP A16")
     raise KeyError(f"unknown architecture {name!r}; the port serves "
                    f"{list_archs()}")
 
@@ -141,4 +138,6 @@ def list_archs() -> list[str]:
 def _ensure_loaded():
     if _REGISTRY:
         return
-    from . import recurrentgemma_2b, smollm_360m  # noqa: F401
+    from . import (deepseek_v2_lite, granite_20b,  # noqa: F401
+                   internlm2_20b, kimi_k2, minicpm3_4b, recurrentgemma_2b,
+                   smollm_360m)

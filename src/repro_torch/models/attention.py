@@ -1,11 +1,13 @@
-"""GQA / MQA attention, full (causal) or sliding-window (local).
+"""Attention variants: GQA / MQA full (causal) or sliding-window
+(local), and MLA (multi-head latent attention).
 
-Mirrors the GQA half of the reference's `models/attention.py`; the MLA
-functions wait (ROADMAP A16).  All softmax math in f32.  Prefill runs
-the flash kernel (B5) when the tensors are on the card, else the blocked
-online-softmax formulation, which never materialises the (S x S)
-scores.  Decode is one token against a KV
-cache; local attention keeps a ring cache.
+Mirrors the reference's `models/attention.py` but for cross-attention,
+which waits with the encoder-decoder (ROADMAP A16).  All softmax math
+in f32.  Prefill runs the flash kernel (B5) when the tensors are on the
+card, else the blocked online-softmax formulation, which never
+materialises the (S x S) scores.  Decode is one token against a cache,
+written in place: K/V for GQA (a ring for local attention), the latent
+c_kv and the shared rotary key for MLA.
 """
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
-from .layers import CacheSpec, ParamSpec, apply_rope
+from .layers import CacheSpec, ParamSpec, apply_rope, rmsnorm
 
 NEG_INF = -1e30
 
@@ -143,4 +145,103 @@ def gqa_decode(p: dict, x, cache: dict, cfg, *, pos: int,
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgs,bskh->bkgh", w, cv.float())
     o = o.reshape(B, 1, H * hd).to(x.dtype)
+    return o @ p["wo"], cache
+
+
+def mla_specs(cfg) -> dict:
+    d, H = cfg.d_model, cfg.n_heads
+    nd, rd, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    kvr, qr = cfg.kv_lora_rank, cfg.q_lora_rank
+    sp = {"wkv_a": ParamSpec((d, kvr + rd)),
+          "kv_norm": ParamSpec((kvr,), torch.float32, "ones"),
+          "wkv_b": ParamSpec((kvr, H * (nd + vd))),
+          "wo": ParamSpec((H * vd, d))}
+    if qr:
+        sp["wq_a"] = ParamSpec((d, qr))
+        sp["q_norm"] = ParamSpec((qr,), torch.float32, "ones")
+        sp["wq_b"] = ParamSpec((qr, H * (nd + rd)))
+    else:
+        sp["wq"] = ParamSpec((d, H * (nd + rd)))
+    return sp
+
+
+def _mla_q(p, x, cfg):
+    B, S, _ = x.shape
+    if cfg.q_lora_rank:
+        q = rmsnorm(x @ p["wq_a"], p["q_norm"]) @ p["wq_b"]
+    else:
+        q = x @ p["wq"]
+    return q.reshape(B, S, cfg.n_heads, cfg.qk_nope_dim + cfg.qk_rope_dim)
+
+
+def _mla_latent(p, x, cfg, positions):
+    """x -> (c_kv (B, S, kvr), the rotated shared key (B, S, 1, rd))."""
+    kvr = cfg.kv_lora_rank
+    kv_a = x @ p["wkv_a"]
+    c_kv = rmsnorm(kv_a[..., :kvr], p["kv_norm"])
+    k_rope = apply_rope(kv_a[..., kvr:][:, :, None, :], positions,
+                        cfg.rope_theta)
+    return c_kv, k_rope
+
+
+def mla_fwd(p: dict, x, cfg, *, positions):
+    """Prefill: per-head K/V materialised from the latent.  B5 runs at
+    hd = nope + rope with hd_v = v_head_dim, scaled by (nope + rope)^-0.5
+    (standard MLA scaling)."""
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    nd, rd, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+
+    q = _mla_q(p, x, cfg)
+    q_rope = apply_rope(q[..., nd:], positions, cfg.rope_theta)
+    c_kv, k_rope = _mla_latent(p, x, cfg, positions)
+    kv = (c_kv @ p["wkv_b"]).reshape(B, S, H, nd + vd)
+
+    qf = torch.cat([q[..., :nd], q_rope], dim=-1)
+    # the shared rotary key broadcast over heads, made contiguous once
+    kf = torch.cat([kv[..., :nd], k_rope.expand(B, S, H, rd)], dim=-1)
+    out = attention(qf, kf, kv[..., nd:], q_positions=positions,
+                    kind="causal", chunk=cfg.attn_chunk)
+    return out.reshape(B, S, H * vd) @ p["wo"]
+
+
+def mla_cache_shape(cfg, batch: int, max_seq: int) -> dict:
+    return {"c_kv": CacheSpec((batch, max_seq, cfg.kv_lora_rank),
+                              torch.bfloat16),
+            "k_rope": CacheSpec((batch, max_seq, cfg.qk_rope_dim),
+                                torch.bfloat16)}
+
+
+def mla_decode(p: dict, x, cache: dict, cfg, *, pos: int):
+    """Latent (absorbed) decode: attention runs in the kv_lora space, in
+    f32.  x: (B, 1, d); pos: the token's position.  Writes c_kv and
+    k_rope into `cache` IN PLACE and returns (out, cache)."""
+    B = x.shape[0]
+    H = cfg.n_heads
+    nd, rd, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    kvr = cfg.kv_lora_rank
+    c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+    Smax = c_kv.shape[1]
+
+    pp = torch.full((1, 1), pos, dtype=torch.int64, device=x.device)
+    q = _mla_q(p, x, cfg)                                # (B, 1, H, nd+rd)
+    q_rope = apply_rope(q[..., nd:], pp, cfg.rope_theta)
+    c_new, kr_new = _mla_latent(p, x, cfg, pp)
+    c_kv[:, pos] = c_new[:, 0].to(c_kv.dtype)
+    k_rope[:, pos] = kr_new[:, 0, 0].to(k_rope.dtype)
+
+    wkv_b = p["wkv_b"].reshape(kvr, H, nd + vd).float()
+    w_uk, w_uv = wkv_b[..., :nd], wkv_b[..., nd:]        # (kvr, H, nd/vd)
+    # absorb W_uk into q: q_lat (B, H, kvr)
+    q_lat = torch.einsum("bhn,rhn->bhr", q[:, 0, :, :nd].float(), w_uk)
+    s = (torch.einsum("bhr,bsr->bhs", q_lat, c_kv.float())
+         + torch.einsum("bhr,bsr->bhs", q_rope[:, 0].float(),
+                        k_rope.float()))
+    s = s * (nd + rd) ** -0.5
+    ok = torch.arange(Smax, device=x.device) <= pos
+    s = torch.where(ok, s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    o_lat = torch.einsum("bhs,bsr->bhr", w, c_kv.float())
+    o = torch.einsum("bhr,rhv->bhv", o_lat, w_uv)
+    o = o.reshape(B, 1, H * vd).to(x.dtype)
     return o @ p["wo"], cache

@@ -1,17 +1,19 @@
-"""LM assembly for `attn` and `rec` blocks: prefill and decode.
+"""LM assembly for the decoder-only block kinds: prefill and decode.
 
-Mirrors the reference's `models/lm.py` for the two block kinds the port
-runs (GQA/local attention + MLP, RG-LRU + MLP).  The reference stacks
-the repeated superblocks and drives them with `lax.scan`; here
-`params["blocks"]` (and `cache["blocks"]`) is a list with one entry per
-superblock, walked by a Python loop.  Other block kinds, MLA, MoE, the
-encoder and the modality frontends raise `NotImplementedError`
-(ROADMAP A16).
+Mirrors the reference's `models/lm.py` for `attn` (GQA, local or MLA
+attention + MLP), `moe` (the same attention + a mixture of experts) and
+`rec` (RG-LRU + MLP) blocks.  The reference stacks the repeated
+superblocks and drives them with `lax.scan`; here `params["blocks"]`
+(and `cache["blocks"]`) is a list with one entry per superblock, walked
+by a Python loop.  MoE configs lead with `first_dense_layers` unrolled
+`attn` blocks (`params["head_blocks"]`).  The xLSTM blocks, the
+encoder-decoder, the modality frontends, learned positions and
+layernorm raise `NotImplementedError` (ROADMAP A16).
 
 Modes (the reference's `train` mode waits with the train step):
   prefill — full-sequence forward that also fills the KV/state caches
   decode  — one token against the caches (written in place for
-            attention: see `attention.gqa_decode`)
+            attention: see `attention.gqa_decode`, `attention.mla_decode`)
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from typing import Any
 import torch
 
 from . import attention as attn
+from . import moe as moe_lib
 from . import recurrent as rec
 from .layers import ParamSpec, apply_rope, mlp_apply, mlp_specs, rmsnorm
 
@@ -28,8 +31,6 @@ _TODO = "is not ported to repro_torch yet (ROADMAP A16)"
 
 def _check_supported(cfg) -> None:
     for what, bad in (("the encoder-decoder stack", cfg.is_encoder_decoder),
-                      ("MoE blocks", cfg.n_experts),
-                      ("MLA attention", cfg.attention == "mla"),
                       (f"the {cfg.frontend} frontend", cfg.frontend),
                       ("learned positions", cfg.learned_pos),
                       (f"{cfg.norm}", cfg.norm != "rmsnorm")):
@@ -44,6 +45,9 @@ def layer_layout(cfg) -> tuple[list[str], list[str], int, list[str]]:
         pat = list(cfg.block_pattern)
         n_rep, rem = divmod(cfg.n_layers, len(pat))
         return [], pat, n_rep, pat[:rem]
+    if cfg.n_experts:
+        fd = cfg.first_dense_layers
+        return ["attn"] * fd, ["moe"], cfg.n_layers - fd, []
     return [], ["attn"], cfg.n_layers, []
 
 
@@ -53,19 +57,25 @@ def _norm_specs(cfg) -> dict:
 
 def block_specs(cfg, kind: str) -> dict:
     sp: dict[str, Any] = {"ln1": _norm_specs(cfg)}
-    if kind == "attn":
-        sp["attn"] = attn.gqa_specs(cfg)
+    if kind in ("attn", "moe"):
+        sp["attn"] = (attn.mla_specs(cfg) if cfg.attention == "mla"
+                      else attn.gqa_specs(cfg))
     elif kind == "rec":
         sp["rec"] = rec.rglru_block_specs(cfg)
     else:
         raise NotImplementedError(f"block kind {kind!r} {_TODO}")
     sp["ln2"] = _norm_specs(cfg)
-    sp["mlp"] = mlp_specs(cfg.d_model, cfg.d_ff, gated=cfg.gated_mlp)
+    if kind == "moe":
+        sp["moe"] = moe_lib.moe_specs(cfg)
+    else:
+        sp["mlp"] = mlp_specs(cfg.d_model, cfg.d_ff, gated=cfg.gated_mlp)
     return sp
 
 
 def block_cache_shape(cfg, kind: str, batch: int, max_seq: int) -> dict:
-    if kind == "attn":
+    if kind in ("attn", "moe"):
+        if cfg.attention == "mla":
+            return attn.mla_cache_shape(cfg, batch, max_seq)
         if cfg.attention == "local":
             # ring buffer: local attention only ever sees the last
             # `window` keys, so the cache is O(window), not O(seq)
@@ -80,14 +90,18 @@ def apply_block(p: dict, x, cfg, kind: str, *, positions=None,
                 mode: str = "prefill", cache=None, pos=None):
     """Returns (x_new, new_cache)."""
     h = rmsnorm(x, p["ln1"]["g"])
-    if kind == "attn":
+    if kind in ("attn", "moe"):
         akind = "local" if cfg.attention == "local" else "causal"
-        if mode == "decode":
+        mla = cfg.attention == "mla"
+        if mode == "decode" and mla:
+            a, new_cache = attn.mla_decode(p["attn"], h, cache, cfg, pos=pos)
+        elif mode == "decode":
             a, new_cache = attn.gqa_decode(p["attn"], h, cache, cfg, pos=pos,
                                            kind=akind, use_rope=cfg.use_rope)
         else:
-            a = attn.gqa_fwd(p["attn"], h, cfg, positions=positions,
-                             kind=akind, use_rope=cfg.use_rope)
+            a = (attn.mla_fwd(p["attn"], h, cfg, positions=positions) if mla
+                 else attn.gqa_fwd(p["attn"], h, cfg, positions=positions,
+                                   kind=akind, use_rope=cfg.use_rope))
             new_cache = _prefill_cache(p["attn"], h, cfg, positions)
     elif kind == "rec":
         if mode == "decode":
@@ -98,12 +112,19 @@ def apply_block(p: dict, x, cfg, kind: str, *, positions=None,
         raise NotImplementedError(f"block kind {kind!r} {_TODO}")
     x = x + a
     h2 = rmsnorm(x, p["ln2"]["g"])
+    if kind == "moe":
+        return x + moe_lib.moe_apply(p["moe"], h2, cfg, act=cfg.act), new_cache
     return x + mlp_apply(p["mlp"], h2, cfg.act), new_cache
 
 
 def _prefill_cache(p, h, cfg, positions) -> dict:
-    """Recompute K/V (cheap projections) to fill the decode cache."""
+    """Recompute K/V, or MLA's latent and rotary key (cheap projections),
+    to fill the decode cache."""
     B, S, _ = h.shape
+    if cfg.attention == "mla":
+        c_kv, k_rope = attn._mla_latent(p, h, cfg, positions)
+        return {"c_kv": c_kv.to(torch.bfloat16),
+                "k_rope": k_rope[:, :, 0, :].to(torch.bfloat16)}
     Hkv, hd = cfg.n_kv_heads, cfg.head_dim
     k = (h @ p["wk"]).reshape(B, S, Hkv, hd)
     v = (h @ p["wv"]).reshape(B, S, Hkv, hd)

@@ -1,11 +1,14 @@
-"""The port's architecture registry refuses what it does not serve, with
-the right reason.
+"""The port's architecture registry serves the decoder-only configs and
+refuses the rest with the right reason.
 
-granite-20b and internlm2-20b are plain full-attention GQA llama
-configs (RoPE, RMSNorm, gated SiLU MLP), every block of which the
-port's LM runs; they are only not registered yet.  The reference's
-other unregistered architectures need blocks the port lacks.
+The five configs of the MLA/MoE slice (internlm2-20b and granite-20b,
+plain GQA at head width 128; minicpm3-4b, MLA; deepseek-v2-lite-16b,
+MLA + MoE; kimi-k2-1t-a32b, GQA + MoE) are registered and equal the
+reference's field for field.  The reference's other architectures need
+blocks the port lacks: xLSTM, the encoder-decoder, the frontends.
 """
+import dataclasses
+
 import pytest
 
 pytest.importorskip("torch")
@@ -13,31 +16,40 @@ pytest.importorskip("torch")
 from repro.configs import base as jbase                     # noqa: E402
 from repro_torch.configs import base                        # noqa: E402
 
-
-@pytest.mark.parametrize("name", ["granite-20b", "internlm2-20b"])
-def test_gqa_configs_wait_on_a16_step_1(name):
-    with pytest.raises(NotImplementedError) as err:
-        base.get_config(name)
-    msg = str(err.value)
-    assert "A16 step 1" in msg and "GQA" in msg
-    for block in ("MLA", "MoE", "xLSTM"):
-        assert block not in msg
-    ref = jbase.get_config(name)
-    assert (ref.attention, ref.norm, ref.gated_mlp) == ("full", "rmsnorm",
-                                                       True)
-    assert ref.n_kv_heads < ref.n_heads
+NEW = ["internlm2-20b", "granite-20b", "minicpm3-4b", "deepseek-v2-lite-16b",
+       "kimi-k2-1t-a32b"]
 
 
-@pytest.mark.parametrize("name", ["xlstm-1.3b", "deepseek-v2-lite-16b"])
+@pytest.mark.parametrize("name", NEW)
+def test_slice_configs_are_served_and_equal_the_reference(name):
+    assert name in base.list_archs()
+    for port, ref in ((base.get_config(name), jbase.get_config(name)),
+                      (base.get_smoke(name), jbase.get_smoke(name))):
+        for f in dataclasses.fields(port):
+            if f.name != "dtype":
+                assert getattr(port, f.name) == getattr(ref, f.name), f.name
+        assert port.param_count() == ref.param_count()
+    # what the port leaves out is the reference's mesh and optimizer
+    ref_only = ({f.name for f in dataclasses.fields(jbase.ArchConfig)}
+                - {f.name for f in dataclasses.fields(base.ArchConfig)})
+    assert ref_only == {"fsdp", "zero", "opt_dtype", "shard_resid", "layout",
+                        "unroll_layers"}
+
+
+REASONS = {"xlstm-1.3b": "mLSTM and sLSTM", "whisper-base": "encoder-decoder"}
+
+
+@pytest.mark.parametrize("name", list(REASONS))
 def test_other_unported_configs_keep_their_reason(name):
-    with pytest.raises(NotImplementedError, match="MLA, MoE, xLSTM"):
+    with pytest.raises(NotImplementedError, match=f"{REASONS[name]}.*A16"):
         base.get_config(name)
 
 
 def test_every_reference_config_is_served_or_refused():
     """The port registers or refuses each of the reference's configs,
-    and the two refusal lists do not overlap."""
+    and none is both."""
     served = set(base.list_archs())
-    refused = set(base.UNPORTED) | set(base.UNREGISTERED_GQA)
-    assert not set(base.UNPORTED) & set(base.UNREGISTERED_GQA)
+    refused = set(base.UNPORTED)
+    assert not served & refused
     assert served | refused == set(jbase.list_archs())
+    assert len(served) == 7

@@ -56,6 +56,12 @@ def test_new_modules_are_checked():
             "src/repro_torch/configs/base.py",
             "src/repro_torch/configs/recurrentgemma_2b.py",
             "src/repro_torch/configs/smollm_360m.py",
+            "src/repro_torch/configs/internlm2_20b.py",
+            "src/repro_torch/configs/granite_20b.py",
+            "src/repro_torch/configs/minicpm3_4b.py",
+            "src/repro_torch/configs/deepseek_v2_lite.py",
+            "src/repro_torch/configs/kimi_k2.py",
+            "src/repro_torch/models/moe.py",
             "src/repro_torch/models/layers.py",
             "src/repro_torch/models/attention.py",
             "src/repro_torch/models/recurrent.py",
