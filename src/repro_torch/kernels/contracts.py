@@ -102,7 +102,8 @@ KERNEL_CONTRACTS: dict[str, dict] = {
             "repro_torch.kernels.sdca_sparse_bucket:sharded_smem_bytes",
         "replaces": "src/repro/kernels/sdca_sparse_bucket.py:453",
     },
-    # LM serving, f32 inputs: online-softmax attention, one block per
+    # LM serving, f32 inputs (and bf16 at widths no tensor-core
+    # instantiation covers): online-softmax attention, one block per
     # (64-row q tile, batch x head), f32 math on the CUDA cores; its
     # Q/K/V/P tiles are placed in dynamic shared memory by `smem_bytes`.
     "flash_attention.flash_attention_kernel": {
@@ -113,11 +114,12 @@ KERNEL_CONTRACTS: dict[str, dict] = {
         "smem_estimate": "repro_torch.kernels.flash_attention:smem_bytes",
         "replaces": "src/repro/kernels/flash_attention.py:93",
     },
-    # LM serving, bf16 inputs (the served configs): the same function on
-    # the bf16 tensor cores, one block of four (hd 64, with a TMA
-    # producer warp) or two (hd 256) consumer warpgroups per (q tile,
-    # batch x head); wgmma exists only for sm_90a, which NVCC_FLAGS
-    # target.  Its Q tile and K/V ring are placed by `smem_bytes_tc`.
+    # LM serving, bf16 inputs (every served config's widths): the same
+    # function on the bf16 tensor cores, built at five padded (q/k, v)
+    # width pairs, one block of two to four consumer warpgroups per (q
+    # tile, batch x head) (`flash_attention.TC_HEAD_DIMS`); wgmma exists
+    # only for sm_90a, which NVCC_FLAGS target.  Its Q tile and K/V ring
+    # are placed by `smem_bytes_tc(hd, hd_v)`.
     "flash_attention.flash_attention_tc": {
         "source": "csrc/flash_attention_tc.cu",
         "entry": "flash_attention_tc_launch",

@@ -22,7 +22,8 @@
 // which the port does not use); the kernel is held to the plain PyTorch
 // version within the reference's own tolerance.  The wrapper sends it
 // all f32 inputs and the bf16 head widths that flash_attention_tc.cu
-// (wgmma on the bf16 tensor cores, hd = hd_v in {64, 256}) does not take.
+// (wgmma on the bf16 tensor cores, built at the width pairs of its
+// `Tile` table, which cover every served config) does not take.
 //
 // What bounds it on this card: operations, at the f32 CUDA-core rate
 // (67 TFLOP/s): 2 (hd + hd_v) per unmasked (query, key) pair.

@@ -11,45 +11,49 @@
 // for every row is never visited.  GQA: head h reads kv head
 // h / (H / Hkv).  Masked scores are the reference's finite -1e30, so a
 // row's state resets exactly once it meets its first unmasked key.
-// f32 inputs, and bf16 at other head widths, go to flash_attention.cu
-// (f32 CUDA-core math; a tensor-core product of f32 would be TF32,
-// which the port does not use).
+// f32 inputs, and bf16 at width pairs no instantiation covers, go to
+// flash_attention.cu (f32 CUDA-core math; a tensor-core product of f32
+// would be TF32, which the port does not use).
 //
-// Layout: q (B, Sq, H, hd), k (B, Sk, Hkv, hd), v (B, Sk, Hkv, hd),
-// o (B, Sq, H, hd), contiguous bf16, read and written with strides;
-// hd = hd_v in {64, 256}, the served configs' widths.
+// Layout: q (B, Sq, H, hd), k (B, Sk, Hkv, hd), v (B, Sk, Hkv, hd_v),
+// bf16, each read through a tensor map with its own strides (MLA's v is
+// a slice of its kv tensor, read in place); o (B, Sq, H, hd_v),
+// contiguous.  The kernel is built at padded widths (HQ, HV), each a
+// multiple of 64 (`Tile` below: (64, 64), (128, 64), (128, 128),
+// (192, 128), (256, 256)), and takes the real hd and hd_v at run time.
+// The tensor maps' inner dimension is the real width, so a 64-column
+// box that reaches past it reads zeros, as rows past Sq or Sk do; zero
+// columns add nothing to q k^T or to P V, and only the columns below
+// hd_v are stored.  The reference pads hd and hd_v the same way, to
+// its 128-lane tile.  The scale is the real hd^-0.5.
 //
 // What bounds it on this card: operations.  recurrentgemma-2b's prefill
 // (B 2, S 4,096, 10 heads, MQA, hd 256, window 2,048) needs ~1.3e11
 // flops of unmasked pairs against ~0.1 GB of q/k/v/o: ~0.13 ms at the
-// bf16 tensor-core peak.  The CUDA-core kernel took ~100x that.
+// bf16 tensor-core peak; internlm2-20b's (B 1, S 2,048, 48 heads, hd
+// 128, causal) ~5.2e10, ~0.052 ms.  The CUDA-core kernel took 30-150x
+// that.
 //
 // What the design does about it:
 //  * One block per (q tile, batch x head): kNC consumer warpgroups of 64
-//    q rows each (four at hd 64, two at hd 256).  Blocks are issued
-//    heaviest q tile first across the whole grid (the q tile is the
-//    grid's slow axis, counted down): causal tiles near the end of the
-//    sequence visit the most kv tiles, and the light ones fill the last
-//    wave.
-//  * Q and a ring of 4 (hd 64) or 2 (hd 256) stages of 64-key K and V
-//    tiles come by TMA from 4-D tensor maps (rows past Sq or Sk read as
-//    zeros); each copy's FULL mbarrier expects its bytes, and the
+//    q rows each (`Tile`).  Blocks are issued heaviest q tile first
+//    across the whole grid (the q tile is the grid's slow axis, counted
+//    down): causal tiles near the end of the sequence visit the most kv
+//    tiles, and the light ones fill the last wave.  A q tile's heads
+//    are neighbours in the grid, so under MQA / GQA they share each
+//    K/V tile through L2.
+//  * Q and a ring of K and V tiles of 64 keys come by TMA from 4-D
+//    tensor maps; each copy's FULL mbarrier expects its bytes, and the
 //    consumers release a stage on its EMPTY mbarrier.  Tiles land in the
 //    128-byte-swizzled layout wgmma reads (64-column sub-tiles of 8-row,
-//    1024-byte atoms; chunk c of row r at chunk c ^ (r % 8)).  At hd 64
-//    the K/V copies from L2 bounded a block of two consumer warpgroups;
-//    with four, 256 q rows share each tile.
+//    1024-byte atoms; chunk c of row r at chunk c ^ (r % 8)).
 //  * Who keeps the ring full depends on the registers.  A block's
-//    registers are shared as if its threads were a multiple of 128: at
-//    hd 256 (O alone is 128 registers a thread) a producer warp beside
-//    the 256 consumer threads would cap every thread at 168 registers
-//    (spilling ~720 bytes, with serialized wgmma), so warp 0 refills
-//    each stage once every warpgroup has released it, and the 256
-//    threads compile to ~190 registers with no spill.  At hd 64 the
-//    registers suffice (~95 a thread), and a producer warp keeps the
-//    ring full without tying warp 0 to the slowest of four warpgroups.
+//    registers are shared as if its threads were a multiple of 128, so
+//    a producer warp costs a whole warpgroup's share: where the
+//    consumers need it (three warpgroups at HV 128, two at HV 256),
+//    warp 0 refills each stage once every warpgroup has released it.
 //    (setmaxnreg, which the compiler does not allocate by, is not used.)
-//  * Each consumer warpgroup computes S = Q K^T for its 64 rows by hd/16
+//  * Each consumer warpgroup computes S = Q K^T for its 64 rows by HQ/16
 //    wgmma.m64n64k16 with bf16 operands from shared memory and f32
 //    accumulators.  The softmax keeps the raw running max and the
 //    partial sums of its two rows per thread in registers (quad shuffles
@@ -58,16 +62,18 @@
 //    product, folded with log2(e) into one FFMA per score before ex2.
 //    P is rounded to bf16 in registers: the f32 accumulator layout of S
 //    is the register-A fragment layout of the next product, so
-//    O += P V is 4 wgmma.m64n{hd}k16 with A from registers and V as an
-//    MN-major B operand, straight from the tile the producer wrote.
+//    O += P V is 4 wgmma.m64n{HV}k16 (n64, n128 or n256) with A from
+//    registers and V as an MN-major B operand, straight from the tile
+//    the producer wrote; O is HV / 2 f32 registers a thread.
 //  * Each tile's products run one after the other within a warpgroup;
 //    the other warpgroups' softmax and products fill the gaps.  Keeping
 //    S of tile j+1 and P V of tile j in flight together measured no
-//    faster at either width (and needs registers hd 64's four
-//    warpgroups do not have).
-//  * Shared memory: Q (64 kNC) x hd, and the stages of K and V (64 x hd),
-//    bf16, +1 KB alignment and 128 B of mbarriers: 197,760 bytes at
-//    hd 256 and 99,456 at hd 64; one block per SM.
+//    faster at hd 64 or 256 (and needs registers that four warpgroups
+//    do not have).
+//  * Shared memory: Q (64 kNC) x HQ, and the stages of K (64 x HQ) and
+//    V (64 x HV), bf16, +1 KB alignment and 128 B of mbarriers
+//    (`Config::kSmem`; flash_attention.py's smem_bytes_tc); one block
+//    per SM.
 #include <cuda.h>
 #include <cudaTypedefs.h>
 #include <cuda_bf16.h>
@@ -117,6 +123,32 @@ __device__ __forceinline__ void wgmma_rs_m64n64k16(
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+// D += P V: A (64 x 16) from registers, B (16 x 128) MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_m64n128k16(
+    float (&d)[64], uint32_t a0, uint32_t a1,
+    uint32_t a2, uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
 }
 
@@ -245,50 +277,85 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&p);
 }
 
-template <int HD>
-__device__ __forceinline__ void wgmma_pv(float (&acc)[HD / 2], uint32_t a0,
+template <int HV>
+__device__ __forceinline__ void wgmma_pv(float (&acc)[HV / 2], uint32_t a0,
                                          uint32_t a1, uint32_t a2,
                                          uint32_t a3, uint64_t db) {
-  if constexpr (HD == 64) {
+  if constexpr (HV == 64) {
     wgmma_rs_m64n64k16(acc, a0, a1, a2, a3, db);
+  } else if constexpr (HV == 128) {
+    wgmma_rs_m64n128k16(acc, a0, a1, a2, a3, db);
   } else {
+    static_assert(HV == 256, "P V at n64, n128 or n256");
     wgmma_rs_m64n256k16(acc, a0, a1, a2, a3, db);
   }
 }
 
-template <int HD>
-struct Config {
-  static_assert(HD == 64 || HD == 256, "the served head widths");
-  // consumer warpgroups (64 q rows each): four at hd 64, so that 256 q
-  // rows share each K/V tile copied from L2 and four warpgroups' softmax
-  // and products interleave; two at hd 256, where O alone is 128
-  // registers a thread
-  static constexpr int kNC = HD == 64 ? 4 : 2;
-  // keys per kv tile
-  static constexpr int kBK = 64;
-  // K/V ring depth: two is what fits the opt-in beside the Q tile at
-  // hd 256; at hd 64, 7 stages measured no faster than 4
-  static constexpr int kStages = HD == 64 ? 4 : 2;
-  static_assert(8 * (1 + 2 * kStages) <= 128,
+// keys per kv tile, at every width
+constexpr int kBK = 64;
+
+template <int NC, int STAGES, bool PRODUCER_WARP>
+struct TileOf {
+  static constexpr int kNC = NC, kStages = STAGES;
+  static constexpr bool kProducerWarp = PRODUCER_WARP;
+};
+// The instantiations, by padded (q/k width, v width): consumer
+// warpgroups of 64 q rows, K/V ring stages, and whether a producer warp
+// keeps the ring full (else warp 0 refills each stage once every
+// warpgroup has released it).  flash_attention.py's TC_HEAD_DIMS mirrors
+// this table.  Times: tools/fa_tc_variants.py at the served prefills on
+// an NVIDIA H100 80GB HBM3 at 700 W.
+//  * (64, 64), smollm: four warpgroups, so that 256 q rows share each
+//    K/V tile copied from L2; 95 registers a thread, so a producer warp
+//    fits; 7 stages measured no faster than 4.
+//  * (128, 64), minicpm3's MLA (96 / 64): the registers of (64, 64);
+//    four warpgroups and a producer warp 0.161 ms, four refilled by
+//    warp 0 0.176, three 0.202, two 0.207.
+//  * (128, 128), hd 128 and 112, and (192, 128), deepseek's MLA: O is
+//    64 registers a thread and the threads take 126.  Three warpgroups
+//    refilled by warp 0 (384 threads; a producer warp beside them would
+//    cap each thread at 128 and spill) beat two with a producer warp:
+//    internlm2 0.132 against 0.140 ms, deepseek 0.105 against 0.109.
+//    (128, 128): 4 stages, 177 KB (5 measured no faster); (192, 128): 3
+//    stages, 193 KB (4 do not fit beside the 72 KB Q tile).
+//  * (256, 256), recurrentgemma: O alone is 128 registers a thread; a
+//    producer warp beside two warpgroups would cap every thread at 168
+//    (spilling ~720 bytes, with serialized wgmma), so warp 0 refills and
+//    the 256 threads compile to ~190 registers with no spill; two stages
+//    are what fits the opt-in beside the Q tile.
+// The padded columns of hd 112 and 96 cost their share of q k^T: a
+// k-step loop bounded by the real width at run time made ptxas fence
+// every wgmma (C7519) and measured ~10 % slower at every pair.
+template <int HQ, int HV> struct Tile;
+template <> struct Tile<64, 64> : TileOf<4, 4, true> {};
+template <> struct Tile<128, 64> : TileOf<4, 4, true> {};
+template <> struct Tile<128, 128> : TileOf<3, 4, false> {};
+template <> struct Tile<192, 128> : TileOf<3, 3, false> {};
+template <> struct Tile<256, 256> : TileOf<2, 2, false> {};
+
+template <int HQ, int HV>
+struct Config : Tile<HQ, HV> {
+  using T = Tile<HQ, HV>;
+  static constexpr int kHQ = HQ, kHV = HV;
+  static_assert(HQ % 64 == 0 && HV % 64 == 0, "64-column sub-tiles");
+  static_assert(8 * (1 + 2 * T::kStages) <= 128,
                 "the Q, FULL and EMPTY mbarriers fit their 128 bytes");
-  // a producer warp keeps the K/V ring full (hd 64); else warp 0 refills
-  // each stage as the warpgroups release it, and the block's 256
-  // threads get up to 255 registers each (hd 256: O alone is 128)
-  static constexpr bool kProducerWarp = HD == 64;
-  static constexpr int kBQ = 64 * kNC;
-  static constexpr int kConsumers = 128 * kNC;
-  static constexpr int kThreads = kConsumers + (kProducerWarp ? 32 : 0);
-  static constexpr uint32_t kQBytes = kBQ * HD * 2;
-  static constexpr uint32_t kKVBytes = kBK * HD * 2;
+  static constexpr int kBQ = 64 * T::kNC;
+  static constexpr int kConsumers = 128 * T::kNC;
+  static constexpr int kThreads =
+      kConsumers + (T::kProducerWarp ? 32 : 0);
+  static constexpr uint32_t kQBytes = kBQ * HQ * 2;
+  static constexpr uint32_t kKBytes = kBK * HQ * 2;
+  static constexpr uint32_t kVBytes = kBK * HV * 2;
+  static constexpr uint32_t kStageBytes = kKBytes + kVBytes;
   static constexpr uint32_t kSmem =
-      kQBytes + kStages * 2 * kKVBytes + 1024 + 128;
+      kQBytes + T::kStages * kStageBytes + 1024 + 128;
 };
 
 // One consumer warpgroup's state: 64 q rows, two per thread (a, b).
-template <int HD>
+template <int HV>
 struct Rows {
-  static constexpr int kBK = Config<HD>::kBK;
-  float acc[HD / 2];
+  float acc[HV / 2];
   float m_a, m_b, l_a, l_b;   // running max (raw scores) and partial sums
   uint32_t p[kBK / 4];        // P in bf16, the A fragments of O += P V
 };
@@ -296,12 +363,12 @@ struct Rows {
 // Scores of one tile -> P (bf16 fragments) and the rows' new running
 // state; returns the correction factors of the old state in (corr_a,
 // corr_b).  `edge`: the tile crosses a mask edge for these rows.
-template <int HD>
+template <int HV>
 __device__ __forceinline__ void softmax_tile(
-    float (&sc)[Config<HD>::kBK / 2], Rows<HD>& R, bool edge, int k_lo,
-    int qa, int qb, int col0, int kind, int window, int Sk,
-    float scale_log2, float& corr_a, float& corr_b) {
-  constexpr int N = Config<HD>::kBK / 2;
+    float (&sc)[kBK / 2], Rows<HV>& R, bool edge, int k_lo, int qa, int qb,
+    int col0, int kind, int window, int Sk, float scale_log2, float& corr_a,
+    float& corr_b) {
+  constexpr int N = kBK / 2;
   float mx_a = kNegInf, mx_b = kNegInf;
 #pragma unroll
   for (int r = 0; r < N; ++r) {
@@ -347,32 +414,35 @@ __device__ __forceinline__ void softmax_tile(
   R.l_b = R.l_b * corr_b + ps_b;
 }
 
-template <int HD>
-__device__ __forceinline__ void rescale_and_pack(
-    const float (&sc)[Config<HD>::kBK / 2], Rows<HD>& R, float corr_a,
-    float corr_b) {
+template <int HV>
+__device__ __forceinline__ void rescale_and_pack(const float (&sc)[kBK / 2],
+                                                 Rows<HV>& R, float corr_a,
+                                                 float corr_b) {
 #pragma unroll
-  for (int r = 0; r < HD / 2; ++r) R.acc[r] *= (r & 2) ? corr_b : corr_a;
+  for (int r = 0; r < HV / 2; ++r) R.acc[r] *= (r & 2) ? corr_b : corr_a;
 #pragma unroll
-  for (int r = 0; r < Config<HD>::kBK / 2; r += 2)
+  for (int r = 0; r < kBK / 2; r += 2)
     R.p[r / 2] = pack_bf16(sc[r], sc[r + 1]);
 }
 
-template <int HD>
-__global__ void __launch_bounds__(Config<HD>::kThreads, 1)
+// C: a Config (one template argument, so that __launch_bounds__ reads
+// no comma of a template argument list)
+template <class C>
+__global__ void __launch_bounds__(C::kThreads, 1)
 flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_k,
                           const __grid_constant__ CUtensorMap tm_v,
                           bf16* __restrict__ o, int Sq, int Sk, int H,
-                          int Hkv, int kind, int window, float scale_log2) {
-  using C = Config<HD>;
-  constexpr int kBK = C::kBK, kStages = C::kStages, kBQ = C::kBQ;
+                          int Hkv, int hd_v, int kind, int window,
+                          float scale_log2) {
+  constexpr int HQ = C::kHQ, HV = C::kHV;
+  constexpr int kStages = C::kStages, kBQ = C::kBQ;
   constexpr int kConsumers = C::kConsumers;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t sQ = base;
   const uint32_t sKV = sQ + C::kQBytes;     // stage s: K, then V
-  const uint32_t bars = sKV + kStages * 2 * C::kKVBytes;
+  const uint32_t bars = sKV + kStages * C::kStageBytes;
   const uint32_t bar_q = bars;
   const uint32_t bar_full = bars + 8;       // + 8 s
   const uint32_t bar_empty = bars + 8 + 8 * kStages;
@@ -400,22 +470,24 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   __syncthreads();
 
   // Tile kt's K and V into its stage by TMA, completing on the stage's
-  // FULL barrier (one thread).
+  // FULL barrier (one thread).  A box's columns past the real width, like
+  // its rows past Sk, land as zeros and count in the bytes.
   auto load_kv = [&](int kt) {
     const int s = (kt - kt_begin) % kStages;
-    const uint32_t sK = sKV + s * 2 * C::kKVBytes, full = bar_full + 8 * s;
-    mbar_arrive_expect_tx(full, 2 * C::kKVBytes);
+    const uint32_t sK = sKV + s * C::kStageBytes, full = bar_full + 8 * s;
+    mbar_arrive_expect_tx(full, C::kStageBytes);
 #pragma unroll
-    for (int c = 0; c < HD / 64; ++c) {          // 64-column sub-tiles
+    for (int c = 0; c < HQ / 64; ++c)            // 64-column sub-tiles
       tma_load_4d(sK + c * kBK * 128, &tm_k, full, 64 * c, hk, kt * kBK, b);
-      tma_load_4d(sK + C::kKVBytes + c * kBK * 128, &tm_v, full, 64 * c, hk,
+#pragma unroll
+    for (int c = 0; c < HV / 64; ++c)
+      tma_load_4d(sK + C::kKBytes + c * kBK * 128, &tm_v, full, 64 * c, hk,
                   kt * kBK, b);
-    }
   };
   if (threadIdx.x == 0) {   // Q; without a producer warp, the first fill
     mbar_arrive_expect_tx(bar_q, C::kQBytes);
 #pragma unroll
-    for (int c = 0; c < HD / 64; ++c)
+    for (int c = 0; c < HQ / 64; ++c)
       tma_load_4d(sQ + c * kBQ * 128, &tm_q, bar_q, 64 * c, h, q_start, b);
     if constexpr (!C::kProducerWarp) {
       for (int kt = kt_begin; kt < min(kt_end, kt_begin + kStages); ++kt)
@@ -473,13 +545,11 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
         }
       }
     };
-    auto k_tile = [&](int kt) {
-      return sKV + stage(kt) * 2 * C::kKVBytes;
-    };
+    auto k_tile = [&](int kt) { return sKV + stage(kt) * C::kStageBytes; };
     auto issue_qk = [&](float (&sc)[kBK / 2], int kt) {
       const uint32_t sK = k_tile(kt);
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
+      for (int kk = 0; kk < HQ / 16; ++kk) {
         const uint32_t off = (kk & 3) * 32;
         wgmma_ss_m64n64k16(
             sc, desc_sw128(sQw + (kk >> 2) * kBQ * 128 + off, 16, 1024),
@@ -487,12 +557,14 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
       asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
     };
-    Rows<HD> R;
+    Rows<HV> R;
+    // V as an MN-major B operand: 16 keys a step, the HV / 64 sub-tiles
+    // kBK * 128 bytes apart (the descriptor's leading offset)
     auto issue_pv = [&](int kt) {
-      const uint32_t sV = k_tile(kt) + C::kKVBytes;
+      const uint32_t sV = k_tile(kt) + C::kKBytes;
 #pragma unroll
       for (int kk = 0; kk < kBK / 16; ++kk) {
-        wgmma_pv<HD>(R.acc, R.p[4 * kk], R.p[4 * kk + 1], R.p[4 * kk + 2],
+        wgmma_pv<HV>(R.acc, R.p[4 * kk], R.p[4 * kk + 1], R.p[4 * kk + 2],
                      R.p[4 * kk + 3],
                      desc_sw128(sV + kk * 16 * 128, kBK * 128, 1024));
       }
@@ -507,7 +579,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     };
 
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) R.acc[i] = 0.f;
+    for (int i = 0; i < HV / 2; ++i) R.acc[i] = 0.f;
     R.m_a = R.m_b = kNegInf;
     R.l_a = R.l_b = 0.f;
 
@@ -523,9 +595,9 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
       issue_qk(sc, kt);
       asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
       fence_regs(sc);
-      softmax_tile<HD>(sc, R, edge(kt), kt * kBK, qa, qb, col0, kind, window,
+      softmax_tile<HV>(sc, R, edge(kt), kt * kBK, qa, qb, col0, kind, window,
                        Sk, scale_log2, corr_a, corr_b);
-      rescale_and_pack<HD>(sc, R, corr_a, corr_b);
+      rescale_and_pack<HV>(sc, R, corr_a, corr_b);
       fence_regs(R.acc);
       wgmma_fence();
       issue_pv(kt);
@@ -544,14 +616,16 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
       R.l_b += __shfl_xor_sync(0xffffffffu, R.l_b, off);
     }
     // o = acc / max(l, 1e-30), as one reciprocal per row (the output is
-    // bf16: the product's extra rounding is far below its ulp)
+    // bf16: the product's extra rounding is far below its ulp); only the
+    // columns below hd_v (a multiple of 8) are stored
     const float inv_a = 1.f / fmaxf(R.l_a, 1e-30f);
     const float inv_b = 1.f / fmaxf(R.l_b, 1e-30f);
-    const size_t o_row = (size_t)H * HD;
-    bf16* oa = o + ((size_t)b * Sq * H + h) * HD + (size_t)qa * o_row + col0;
+    const size_t o_row = (size_t)H * hd_v;
+    bf16* oa = o + ((size_t)b * Sq * H + h) * hd_v + (size_t)qa * o_row + col0;
     bf16* ob = oa + 8 * o_row;
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
+    for (int j = 0; j < HV / 8; ++j) {
+      if (8 * j >= hd_v) break;
       if (qa < Sq)
         *reinterpret_cast<__nv_bfloat162*>(oa + 8 * j) = __floats2bfloat162_rn(
             R.acc[4 * j] * inv_a, R.acc[4 * j + 1] * inv_a);
@@ -562,11 +636,12 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// A (HD, heads, S, B) bf16 tensor map of q, k or v whose boxes are 64
-// columns by `rows` rows of one (batch, head), 128-byte swizzled; rows
-// past S read as zeros.
-bool tensor_map(CUtensorMap* map, const void* base, int HD, int heads,
-                int S, int B, int rows) {
+// A (width, heads, S, B) bf16 tensor map of q, k or v with the tensor's
+// own strides (in elements: head, row, batch; the columns contiguous),
+// whose boxes are 64 columns by `rows` rows of one (batch, head),
+// 128-byte swizzled; columns past `width` and rows past S read as zeros.
+bool tensor_map(CUtensorMap* map, const void* base, int width, int heads,
+                int S, int B, const long long* strides, int rows) {
   static PFN_cuTensorMapEncodeTiled encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -577,68 +652,80 @@ bool tensor_map(CUtensorMap* map, const void* base, int HD, int heads,
       return false;
     encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled>(fn);
   }
-  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)heads,
+  const cuuint64_t dims[4] = {(cuuint64_t)width, (cuuint64_t)heads,
                               (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {2ull * HD, 2ull * HD * heads,
-                                 2ull * HD * heads * S};   // bytes
+  const cuuint64_t bytes[3] = {2ull * strides[0], 2ull * strides[1],
+                               2ull * strides[2]};
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(base), dims, strides, box, step,
+                const_cast<void*>(base), dims, bytes, box, step,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Sq, int Sk, int H, int Hkv, int kind, int window,
-           float scale_log2, int smem, cudaStream_t stream) {
-  using C = Config<HD>;
-  if (smem < static_cast<int>(C::kSmem)) return cudaErrorInvalidValue;
+struct Args {
+  const void *q, *k, *v;
+  void* o;
+  int B, Sq, Sk, H, Hkv, hd, hd_v, kind, window;
+  float scale_log2;
+  const long long* strides;   // q, k, v: (head, row, batch) each
+  int smem;
+  cudaStream_t stream;
+};
+
+template <int HQ, int HV>
+int launch(const Args& a) {
+  using C = Config<HQ, HV>;
+  if (a.smem < static_cast<int>(C::kSmem)) return cudaErrorInvalidValue;
   CUtensorMap tm_q, tm_k, tm_v;
-  if (!tensor_map(&tm_q, q, HD, H, Sq, B, C::kBQ) ||
-      !tensor_map(&tm_k, k, HD, Hkv, Sk, B, C::kBK) ||
-      !tensor_map(&tm_v, v, HD, Hkv, Sk, B, C::kBK))
+  if (!tensor_map(&tm_q, a.q, a.hd, a.H, a.Sq, a.B, a.strides, C::kBQ) ||
+      !tensor_map(&tm_k, a.k, a.hd, a.Hkv, a.Sk, a.B, a.strides + 3, kBK) ||
+      !tensor_map(&tm_v, a.v, a.hd_v, a.Hkv, a.Sk, a.B, a.strides + 6, kBK))
     return cudaErrorInvalidValue;
-  auto fn = flash_attention_tc_kernel<HD>;
+  auto fn = flash_attention_tc_kernel<C>;
   static int smem_set = 0;   // the opt-in is set once per size
-  if (smem > smem_set) {
+  if (a.smem > smem_set) {
     cudaError_t err = cudaFuncSetAttribute(
-        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
     if (err != cudaSuccess) return err;
-    smem_set = smem;
+    smem_set = a.smem;
   }
-  const int q_tiles = (Sq + C::kBQ - 1) / C::kBQ;
+  const int q_tiles = (a.Sq + C::kBQ - 1) / C::kBQ;
   if (q_tiles > 65535) return cudaErrorInvalidValue;
-  const dim3 grid(B * H, q_tiles);
-  fn<<<grid, C::kThreads, smem, stream>>>(
-      tm_q, tm_k, tm_v, static_cast<bf16*>(o), Sq, Sk, H, Hkv, kind,
-      window, scale_log2);
+  const dim3 grid(a.B * a.H, q_tiles);
+  fn<<<grid, C::kThreads, a.smem, a.stream>>>(
+      tm_q, tm_k, tm_v, static_cast<bf16*>(a.o), a.Sq, a.Sk, a.H, a.Hkv,
+      a.hd_v, a.kind, a.window, a.scale_log2);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// bf16 only; hd in {64, 256} for q, k and v.  scale_log2 =
-// hd^-0.5 * log2(e).  Returns a cudaError_t (0 on success).
+// bf16 only; hd and hd_v multiples of 8 whose padded pair (each rounded
+// up to 64) is a `Tile`; strides: nine element strides (head, row,
+// batch of q, then k, then v), each a multiple of 8; o contiguous
+// (B, Sq, H, hd_v).  scale_log2 = hd^-0.5 * log2(e).  Returns a
+// cudaError_t (0 on success).
 extern "C" int flash_attention_tc_launch(const void* q, const void* k,
                                          const void* v, void* o, int B,
                                          int Sq, int Sk, int H, int Hkv,
-                                         int hd, int kind, int window,
-                                         float scale_log2, int smem,
+                                         int hd, int hd_v, int kind,
+                                         int window, float scale_log2,
+                                         const long long* strides, int smem,
                                          void* stream) {
   if (B <= 0 || Sq <= 0 || H <= 0) return cudaSuccess;
-  if (Hkv <= 0 || H % Hkv != 0 || Sk <= 0) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (hd) {
-    case 64:
-      return launch<64>(q, k, v, o, B, Sq, Sk, H, Hkv, kind, window,
-                        scale_log2, smem, s);
-    case 256:
-      return launch<256>(q, k, v, o, B, Sq, Sk, H, Hkv, kind, window,
-                         scale_log2, smem, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  if (Hkv <= 0 || H % Hkv != 0 || Sk <= 0 || hd <= 0 || hd_v <= 0 ||
+      hd % 8 != 0 || hd_v % 8 != 0)
+    return cudaErrorInvalidValue;
+  const Args a{q, k, v, o, B, Sq, Sk, H, Hkv, hd, hd_v, kind, window,
+               scale_log2, strides, smem, static_cast<cudaStream_t>(stream)};
+  const int hq = (hd + 63) / 64 * 64, hv = (hd_v + 63) / 64 * 64;
+  if (hq == 64 && hv == 64) return launch<64, 64>(a);
+  if (hq == 128 && hv == 64) return launch<128, 64>(a);
+  if (hq == 128 && hv == 128) return launch<128, 128>(a);
+  if (hq == 192 && hv == 128) return launch<192, 128>(a);
+  if (hq == 256 && hv == 256) return launch<256, 256>(a);
+  return cudaErrorInvalidValue;
 }

@@ -4,18 +4,24 @@
 local (window) or full masks and GQA in one launch, replacing the
 reference's Pallas kernel
 `repro/kernels/flash_attention.py:flash_attention_kernel`.  `route`
-picks one of two hand-written kernels: bf16 at hd = hd_v in {64, 256}
-(the served configs' widths) goes to `csrc/flash_attention_tc.cu`
-(wgmma on the bf16 tensor cores); f32, and bf16 at any other hd,
-hd_v <= 256, to `csrc/flash_attention.cu` (f32 math on the CUDA cores:
-an f32 tensor-core product would be TF32, which the port does not
-use).  Both keep the reference's public (B, S, H, hd) layout, read and
-written with strides, so nothing is transposed or padded; kv is never
-padded either (the reference's `seq_k` has no caller in the port), and
-keys past Sk in the last kv tile are masked by the kernels' own ragged
-edge.  On a CPU tensor the same function runs `flash_attention_plain`,
-the plain PyTorch version (the masked softmax written out in f32); on
-a CUDA tensor it launches a kernel or raises.
+picks one of two hand-written kernels.  bf16 goes to
+`csrc/flash_attention_tc.cu` (wgmma on the bf16 tensor cores) wherever
+one of its instantiations covers the widths: hd and hd_v, multiples of
+8, each rounded up to a multiple of 64, give a pair of `TC_HEAD_DIMS`,
+as every served config's do (hd 64, 112, 128, 256; MLA's 192 / 128 and
+96 / 64).  f32, and bf16 at any other hd, hd_v <= 256, go to
+`csrc/flash_attention.cu` (f32 math on the CUDA cores: an f32
+tensor-core product would be TF32, which the port does not use).  Both
+keep the reference's public (B, S, H, hd) layout, so nothing is
+transposed or padded in device memory: the tensor-core kernel reads q,
+k and v through tensor maps with their own strides (MLA's v, a slice
+of its kv tensor, is read in place) and fills the columns past the
+real widths with zeros on chip; the CUDA-core kernel takes contiguous
+copies.  kv is never padded either (the reference's `seq_k` has no
+caller in the port), and keys past Sk in the last kv tile are masked by
+the kernels' own ragged edge.  On a CPU tensor the same function runs
+`flash_attention_plain`, the plain PyTorch version (the masked softmax
+written out in f32); on a CUDA tensor it launches a kernel or raises.
 """
 from __future__ import annotations
 
@@ -34,10 +40,15 @@ MAX_HEAD_DIM = 256
 #: the CUDA-core kernel's q-tile rows and kv-tile keys
 #: (csrc/flash_attention.cu)
 BQ = BK = 64
-#: head widths (hd = hd_v) the bf16 tensor-core kernel takes
-TC_HEAD_DIMS = (64, 256)
-#: rows of one consumer warpgroup of the tensor-core kernel
-TC_WG_ROWS = 64
+#: the bf16 tensor-core kernel's instantiations (`Tile` in
+#: csrc/flash_attention_tc.cu), by padded (q/k width, v width): (consumer
+#: warpgroups of TC_WG_ROWS q rows, K/V ring stages, producer warp)
+TC_HEAD_DIMS = {(64, 64): (4, 4, True), (128, 64): (4, 4, True),
+                (128, 128): (3, 4, False), (192, 128): (3, 3, False),
+                (256, 256): (2, 2, False)}
+#: the tensor-core kernel's rows of one consumer warpgroup, keys per kv
+#: tile, and columns of one TMA box (the unit its widths are padded to)
+TC_WG_ROWS = TC_BK = TC_COLS = 64
 LOG2E = 1.4426950408889634
 
 #: launches of either CUDA kernel (the plain version does not count),
@@ -47,14 +58,23 @@ core_launches = 0
 tc_launches = 0
 
 
+def tc_widths(hd: int, hd_v: int) -> tuple[int, int]:
+    """The padded (q/k, v) widths of the tensor-core instantiation that
+    would take hd and hd_v: each rounded up to whole TMA boxes."""
+    return -(-hd // TC_COLS) * TC_COLS, -(-hd_v // TC_COLS) * TC_COLS
+
+
 def route(dtype: torch.dtype, hd: int, hd_v: int) -> str:
-    """Which kernel takes these inputs: "tc" (bf16 at hd = hd_v in
-    TC_HEAD_DIMS, tensor cores) or "core" (f32, and bf16 at other
-    widths, CUDA cores); raises on what neither takes."""
+    """Which kernel takes these inputs: "tc" (bf16 where an instantiation
+    of TC_HEAD_DIMS covers the widths; TMA reads rows whose byte stride
+    is a multiple of 16, so hd and hd_v are multiples of 8: tensor cores)
+    or "core" (f32, and bf16 at other widths: CUDA cores); raises on what
+    neither takes."""
     if dtype not in DTYPE_CODES:
         raise ValueError(f"flash_attention_kernel: dtype {dtype} not "
                          f"supported (f32 or bf16)")
-    if dtype == torch.bfloat16 and hd == hd_v and hd in TC_HEAD_DIMS:
+    if (dtype == torch.bfloat16 and hd > 0 and hd_v > 0 and hd % 8 == 0
+            and hd_v % 8 == 0 and tc_widths(hd, hd_v) in TC_HEAD_DIMS):
         return "tc"
     if 0 < hd <= MAX_HEAD_DIM and 0 < hd_v <= MAX_HEAD_DIM:
         return "core"
@@ -86,19 +106,21 @@ def smem_bytes(hd: int, hd_v: int) -> int:
     return 4 * (BQ * (hd + 1) + hd * (BK + 1) + BK * hd_v + BQ * (BK + 1))
 
 
-def tc_tile(hd: int) -> tuple[int, int, int]:
+def tc_tile(hd: int, hd_v: int) -> tuple[int, int, int]:
     """(q rows per block, keys per kv tile, K/V ring stages) of the
-    tensor-core kernel at head width hd (`Config` in
+    tensor-core instantiation that takes hd and hd_v (`Config` in
     csrc/flash_attention_tc.cu)."""
-    return (256, 64, 4) if hd == 64 else (128, 64, 2)
+    nc, stages, _ = TC_HEAD_DIMS[tc_widths(hd, hd_v)]
+    return TC_WG_ROWS * nc, TC_BK, stages
 
 
-def smem_bytes_tc(hd: int) -> int:
+def smem_bytes_tc(hd: int, hd_v: int) -> int:
     """Dynamic shared memory of one tensor-core block: the bf16 Q tile
-    and the ring's stages of K and V tiles, plus 1 KB to align the
-    swizzled tiles and 128 bytes of mbarriers."""
-    bq, bk, stages = tc_tile(hd)
-    return 2 * hd * (bq + 2 * stages * bk) + 1024 + 128
+    and the ring's stages of K and V tiles at the padded widths, plus 1
+    KB to align the swizzled tiles and 128 bytes of mbarriers."""
+    hq, hv = tc_widths(hd, hd_v)
+    bq, bk, stages = tc_tile(hd, hd_v)
+    return 2 * (bq * hq + stages * bk * (hq + hv)) + 1024 + 128
 
 
 def _fn():
@@ -113,8 +135,8 @@ def _fn():
 def _fn_tc():
     fn = build.load("flash_attention_tc").flash_attention_tc_launch
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_float,
-                   i, p]
+    fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, ctypes.c_float,
+                   p, i, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -152,12 +174,90 @@ def flash_attention_plain(q, k, v, *, kind: str = "causal", window: int = 0):
     return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd_v).to(q.dtype)
 
 
+def _tma_strides(t) -> list[int] | None:
+    """t's (head, row, batch) element strides as the tensor-core
+    kernel's tensor maps take them, or None where TMA cannot read t in
+    place (columns not contiguous; a stride or the base not 16-byte
+    aligned).  A dimension of size 1 is never stepped: its stride is
+    taken as the contiguous one."""
+    size, stride = t.shape, t.stride()
+    if (stride[3] != 1 and size[3] > 1) or t.data_ptr() % 16:
+        return None
+    out, inner = [], size[3]
+    for d in (2, 1, 0):
+        s = stride[d] if size[d] > 1 else inner
+        if s <= 0 or s % 8:
+            return None
+        out.append(s)
+        inner = s * size[d]
+    return out
+
+
+def _launch_tc(q, k, v, kind: str, window: int):
+    """The tensor-core kernel on checked bf16 inputs, each read with its
+    own strides where TMA can (else from a contiguous copy)."""
+    global launches, tc_launches
+    B, Sq, H, hd = q.shape
+    Sk, Hkv, hd_v = k.shape[1], k.shape[2], v.shape[-1]
+    ts, strides = [], []
+    for t in (q, k, v):
+        st = _tma_strides(t)
+        if st is None:
+            t = t.contiguous()
+            st = _tma_strides(t)
+        ts.append(t)
+        strides += st
+    q, k, v = ts
+    smem = smem_bytes_tc(hd, hd_v)
+    o = torch.empty((B, Sq, H, hd_v), dtype=q.dtype, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _fn_tc()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                   B, Sq, Sk, H, Hkv, hd, hd_v, KINDS[kind], int(window),
+                   hd ** -0.5 * LOG2E, (ctypes.c_longlong * 9)(*strides),
+                   smem, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"flash_attention tensor-core kernel launch failed: CUDA error "
+            f"{err} (B={B}, Sq={Sq}, Sk={Sk}, H={H}, Hkv={Hkv}, hd={hd}, "
+            f"hd_v={hd_v}, strides {strides}, {smem} bytes of shared "
+            f"memory)")
+    launches += 1
+    tc_launches += 1
+    return o
+
+
+def _launch_core(q, k, v, kind: str, window: int):
+    """The CUDA-core kernel on checked inputs, f32 or bf16 at any widths
+    it takes (bf16 also where the tensor cores take them, for a caller
+    that times one kernel against the other)."""
+    global launches, core_launches
+    B, Sq, H, hd = q.shape
+    Sk, Hkv, hd_v = k.shape[1], k.shape[2], v.shape[-1]
+    smem = smem_bytes(hd, hd_v)
+    if smem > SMEM_OPTIN_BYTES:
+        raise ValueError(f"flash_attention_kernel: {smem} bytes of shared "
+                         f"memory exceed the {SMEM_OPTIN_BYTES}-byte opt-in")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    o = torch.empty((B, Sq, H, hd_v), dtype=q.dtype, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B,
+                Sq, Sk, H, Hkv, hd, hd_v, KINDS[kind], int(window),
+                hd ** -0.5, DTYPE_CODES[q.dtype], smem, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"flash_attention CUDA-core kernel launch failed: CUDA error "
+            f"{err} (B={B}, Sq={Sq}, Sk={Sk}, H={H}, Hkv={Hkv}, hd={hd}, "
+            f"hd_v={hd_v}, {smem} bytes of shared memory)")
+    launches += 1
+    core_launches += 1
+    return o
+
+
 def flash_attention_kernel(q, k, v, *, kind: str = "causal", window: int = 0):
     """q: (B, Sq, H, hd); k: (B, Sk, Hkv, hd); v: (B, Sk, Hkv, hd_v);
     H a multiple of Hkv (head h reads kv head h // (H // Hkv)); f32 or
     bf16, one dtype (`route` says which kernel takes them).  Returns
     (B, Sq, H, hd_v) in q's dtype."""
-    global launches, core_launches, tc_launches
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, kind=kind, window=window)
     if q.device.type != "cuda":
@@ -180,30 +280,6 @@ def flash_attention_kernel(q, k, v, *, kind: str = "causal", window: int = 0):
             raise ValueError(f"flash_attention_kernel: {name} is "
                              f"{t.dtype} on {t.device}, q {q.dtype} on "
                              f"{q.device}")
-    tc = route(q.dtype, hd, hd_v) == "tc"
-    smem = smem_bytes_tc(hd) if tc else smem_bytes(hd, hd_v)
-    if smem > SMEM_OPTIN_BYTES:
-        raise ValueError(f"flash_attention_kernel: {smem} bytes of shared "
-                         f"memory exceed the {SMEM_OPTIN_BYTES}-byte opt-in")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    o = torch.empty((B, Sq, H, hd_v), dtype=q.dtype, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
-    if tc:
-        err = _fn_tc()(*ptrs, B, Sq, Sk, H, Hkv, hd, KINDS[kind],
-                       int(window), hd ** -0.5 * LOG2E, smem, stream)
-    else:
-        err = _fn()(*ptrs, B, Sq, Sk, H, Hkv, hd, hd_v, KINDS[kind],
-                    int(window), hd ** -0.5, DTYPE_CODES[q.dtype], smem,
-                    stream)
-    if err != 0:
-        raise RuntimeError(
-            f"flash_attention {'tensor-core' if tc else 'CUDA-core'} kernel "
-            f"launch failed: CUDA error {err} (B={B}, Sq={Sq}, Sk={Sk}, H={H}, "
-            f"Hkv={Hkv}, hd={hd}, hd_v={hd_v}, {smem} bytes of shared memory)")
-    launches += 1
-    if tc:
-        tc_launches += 1
-    else:
-        core_launches += 1
-    return o
+    if route(q.dtype, hd, hd_v) == "tc":
+        return _launch_tc(q, k, v, kind, window)
+    return _launch_core(q, k, v, kind, window)

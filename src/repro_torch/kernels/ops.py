@@ -488,6 +488,7 @@ def flash_attention(q, k, v, *, kind: str = "causal", window: int = 0):
     q: (B, Sq, H, hd); k: (B, Sk, Hkv, hd); v: (B, Sk, Hkv, hd_v); the
     GQA group is H // Hkv and the true kv length is Sk.  Unlike the
     reference's wrapper nothing is padded: the CUDA kernels mask their
-    own ragged edge (f32: any hd, hd_v <= 256; bf16: hd = hd_v in
-    {64, 256})."""
+    own ragged edge (f32: any hd, hd_v <= 256; bf16 the same, on the
+    tensor cores at every width pair of `flash_attention.TC_HEAD_DIMS`,
+    whose padding to 64 columns is done on chip)."""
     return _fa.flash_attention_kernel(q, k, v, kind=kind, window=window)
