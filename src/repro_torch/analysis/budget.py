@@ -4,7 +4,7 @@
 dynamic shared memory the kernel's launch would place — through the
 shared-memory model its contract registers in `kernels.contracts`
 (`smem_layout`, `smem_bytes`, `sharded_smem_bytes`,
-`tp_solve_smem_bytes`), choosing the in-shared-memory or the global
+`tp_step_smem_bytes`), choosing the in-shared-memory or the global
 fallback layout as the wrapper does — and checks it against
 `contracts.SMEM_OPTIN_BYTES`.  It trusts neither `planner._plan_feasible`
 nor the plan's route verdict.  On a clean tree the sweep finds nothing,
@@ -23,7 +23,10 @@ sparse_solver_plan` never misfits on d; it misfits on the row width,
 `run_budget_audit` sweeps every registry workload (sub and full shapes),
 and two rows on either side of that width (`ROW_EDGE`), x card
 topologies (1 and 4 cards; 1, 2 and 4 model lanes) x the planner's
-candidate geometries, and the detected card's topology when given one.
+candidate geometries, and the detected card's topology when given one;
+then the TP step's model alone at its edges (`TP_STEP_EDGES`: every
+bucket width up to the largest, at d_loc edges), since a plan names only
+the buckets the planner tries.
 """
 from __future__ import annotations
 
@@ -43,7 +46,7 @@ TOPOLOGIES = tuple((c, m) for c in (1, 4) for m in (1, 2, 4))
 ROW_EDGE = (58_112, 58_113)
 
 _DENSE = "sdca_bucket.sdca_bucket_kernel"
-_TP_SOLVE = "sdca_bucket.sdca_bucket_tp_solve"
+_TP_STEP = "sdca_bucket.sdca_bucket_tp_step"
 _SPARSE = "sdca_sparse_bucket.sdca_sparse_bucket_kernel"
 _SHARDED = "sdca_sparse_bucket.sdca_sparse_sharded_bucket"
 
@@ -53,6 +56,42 @@ def _model(key: str):
     from repro_torch.kernels.contracts import KERNEL_CONTRACTS
     mod, _, attr = KERNEL_CONTRACTS[key]["smem_estimate"].partition(":")
     return getattr(importlib.import_module(mod), attr)
+
+
+def tp_step_edges() -> list[tuple[int, int]]:
+    """The TP step's (B, d_loc) edges: every B up to the recursion's cap
+    (its [m0 | G] leaves shared memory above 64, its stage rows fall to
+    one a compute warp near 512), each at d_loc 1 and around one and two
+    stages' rows."""
+    from repro_torch.kernels import sdca_bucket as kd
+    out = []
+    for B in range(1, kd.MAX_BUCKET + 1):
+        r = kd.tp_stage_rows(B)
+        out += [(B, dl) for dl in (1, r - 1, r, r + 1, 2 * r + 1)
+                if dl >= 1]
+    return out
+
+
+def audit_tp_step(B: int, d_loc: int) -> list[Finding]:
+    """SMEM-PLAN-BUDGET for the TP step at (B, d_loc): its layout (a
+    function of B alone) fits the opt-in, and its stages, a multiple of
+    the compute warps' rows each, cover the lane's rows."""
+    from repro_torch.kernels import sdca_bucket as kd
+    from repro_torch.kernels.contracts import SMEM_OPTIN_BYTES
+    placed = _model(_TP_STEP)(B)
+    rows = kd.tp_stage_rows(B)
+    stages = -(-d_loc // rows)
+    bad = []
+    if placed > SMEM_OPTIN_BYTES:
+        bad.append(f"places {placed} B of shared memory a block; the "
+                   f"opt-in is {SMEM_OPTIN_BYTES} B")
+    if rows % kd.TP_COMPUTE_WARPS or stages * rows < d_loc:
+        bad.append(f"{stages} stages of {rows} rows do not split "
+                   f"{d_loc} rows over the compute warps")
+    return [Finding(rules.SMEM_PLAN_BUDGET, f"sdca_bucket_tp_step "
+                    f"(B={B}, d_loc={d_loc}) {msg}",
+                    where="src/repro_torch/kernels/sdca_bucket.py:1",
+                    case=f"tp-step/B={B}/d_loc={d_loc}") for msg in bad]
 
 
 def _round_up(x: int, m: int) -> int:
@@ -95,7 +134,7 @@ def audit_plan(sig, topo, plan) -> list[Finding]:
                  f"beside its tiles, above the {topo.v_budget()}-byte v "
                  f"budget")
         if plan.feature_shard:
-            over(f"sdca_bucket_tp_solve (B={B})", _model(_TP_SOLVE)(B))
+            over(f"sdca_bucket_tp_step (B={B})", _model(_TP_STEP)(B))
         return found
     nnz = _round_up(max(sig.nnz, 1), plan.nnz_multiple) \
         if plan.nnz_multiple else sig.nnz
@@ -157,8 +196,12 @@ def run_budget_audit(log=None, *, detected=None) -> tuple[list[Finding], int]:
             n_plans += len(plans)
             for plan in plans:
                 found += audit_plan(sig, topo, plan)
+    edges = tp_step_edges()
+    for B, d_loc in edges:
+        found += audit_tp_step(B, d_loc)
     if log is not None:
         log(f"  budget: {n_plans} candidate plans swept over "
-            f"{len(topos)} topologies, {len(found)} finding(s)")
+            f"{len(topos)} topologies, the TP step at {len(edges)} "
+            f"(B, d_loc) edges, {len(found)} finding(s)")
     return found, n_plans
 

@@ -135,8 +135,7 @@ def _caller() -> str:
 
 #: the SDCA kernels' launch counters, (module, attribute)
 _COUNTERS = (("sdca_bucket", "launches"),
-             ("sdca_bucket", "tp_partials_launches"),
-             ("sdca_bucket", "tp_solve_launches"),
+             ("sdca_bucket", "tp_step_launches"),
              ("sdca_sparse_bucket", "launches"),
              ("sdca_sparse_bucket", "gather_launches"),
              ("sdca_sparse_bucket", "sharded_launches"))

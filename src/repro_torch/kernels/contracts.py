@@ -34,29 +34,19 @@ KERNEL_CONTRACTS: dict[str, dict] = {
         "smem_estimate": "repro_torch.kernels.sdca_bucket:smem_layout",
         "replaces": "src/repro/kernels/sdca_bucket.py:102",
     },
-    # dense tensor-parallel pair, one launch of each per bucket: the
-    # lanes' packed [m0 | G] partials, then (after the caller's
-    # lane-ordered sum over 'model') the recursion and each lane's
-    # update of its rows of v; B1's sums and recursion
+    # dense tensor-parallel pair, one launch a bucket: bucket b's
+    # recursion on the lanes' summed [m0 | G] (after the caller's
+    # lane-ordered sum over 'model') with each lane's update of its rows
+    # of v, and bucket b+1's partials; B1's recursion
     # (csrc/dense_recursion.cuh), built with the common flags as B1 is.
-    # Tiles in global memory.  The partials use no shared memory (a
-    # static size of 0).
-    "sdca_bucket.sdca_bucket_tp_partials": {
+    # The lane's rows stream through shared-memory slots; placed by
+    # `tp_step_smem_bytes`, which the launcher requires.
+    "sdca_bucket.sdca_bucket_tp_step": {
         "source": "csrc/sdca_bucket_tp.cu",
-        "entry": "sdca_bucket_tp_partials_launch",
+        "entry": "sdca_bucket_tp_step_launch",
         "nvcc_extra": (),
         "misfit": "repro_torch.kernels.ops:dense_kernel_misfit",
-        "smem_estimate": None,
-        "replaces": "src/repro/kernels/sdca_bucket.py:102",
-    },
-    # the pair's solve: the bucket's a, y, q and deltas in dynamic
-    # shared memory, 16 B a coordinate (`tp_solve_smem_bytes`)
-    "sdca_bucket.sdca_bucket_tp_solve": {
-        "source": "csrc/sdca_bucket_tp.cu",
-        "entry": "sdca_bucket_tp_solve_launch",
-        "nvcc_extra": (),
-        "misfit": "repro_torch.kernels.ops:dense_kernel_misfit",
-        "smem_estimate": "repro_torch.kernels.sdca_bucket:tp_solve_smem_bytes",
+        "smem_estimate": "repro_torch.kernels.sdca_bucket:tp_step_smem_bytes",
         "replaces": "src/repro/kernels/sdca_bucket.py:102",
     },
     # sparse replicated kernel: v replicas in global memory, two stages

@@ -1,11 +1,14 @@
-// The dense bucket's arithmetic, shared by the whole-tile kernel
-// (sdca_bucket.cu, B1) and the tensor-parallel pair (sdca_bucket_tp.cu),
-// which splits it around the model lanes' exchange of [m0 | G].
+// The dense bucket's arithmetic: the whole-tile kernel's (sdca_bucket.cu,
+// B1) sums and the recursion it shares with the tensor-parallel pair
+// (sdca_bucket_tp.cu), which splits the bucket around the model lanes'
+// exchange of [m0 | G].
 //
-// A bucket tile x is (d, B), row f at x + f*B.  Every sum runs in one
-// order in both kernels: over f ascending for m0_j and G_ij, over i
-// ascending for (X delta)_f; the recursion walks the B coordinates in
-// order on one warp, margin j in lane j % 32, slot j / 32.
+// A bucket tile x is (d, B), row f at x + f*B.  margin_sum, gram_sum and
+// update_sum are B1's alone: over f ascending for m0_j and G_ij, over i
+// ascending for (X delta)_f.  The pair forms its sums in its own order
+// from rows staged in shared memory (sdca_bucket_tp.cu); both kernels
+// run bucket_recursion, which walks the B coordinates in order on one
+// warp, margin j in lane j % 32, slot j / 32.
 #pragma once
 
 #include <stddef.h>

@@ -8,7 +8,8 @@ launch; `sdca_sparse_sharded_subepoch` is the feature-sharded route,
 every (worker, model lane) block in one launch per bucket, or one lane
 a process with the working sets exchanged by a callable; and
 `sdca_bucket_tp_subepoch` is dense tensor parallelism through the split
-pair, the lanes' partials summed between its two launches.
+pair, the lanes' partials summed between its steps (one launch a bucket:
+its solve and the next bucket's partials).
 `rglru_scan` and `flash_attention` serve the LM: the RG-LRU recurrence
 and online-softmax attention at the reference's public layouts.
 `dense_tiles`, `sparse_tiles` and `sharded_tiles` own the layout of the
@@ -432,17 +433,18 @@ def sdca_bucket_tp_subepoch(obj: Objective, Xl, yl, al, v0, lam_n, sig, *,
                             bucket: int, model_lanes: int, reduce=None,
                             source: str = "ad-hoc arrays"):
     """Every worker's dense TENSOR-PARALLEL sub-epoch through the split
-    pair (`sdca_bucket.sdca_bucket_tp_partials`, `..._tp_solve`).
+    pair's step (`sdca_bucket.sdca_bucket_tp_step`).
 
     Xl: (*w, Mh*d_loc, n_local) each worker's held lanes' rows in lane
     order, columns in visiting order; yl/al (*w, n_local); v0 (*w,
-    Mh*d_loc) the lanes' slices of v.  Per bucket: the partials of
-    every held lane, ``reduce`` over the model lanes ((W, Mh, B, 1 + B)
-    -> (W, B, 1 + B); default `core.sdca.lane_ordered_sum`, the stacked
-    form, all lanes held; on a process mesh, one lane a rank, the
-    ordered all-gather sum over 'model', `engine.MeshCollectives.
-    model_sum`), then the solve.  Returns (a_new (*w, n_local), dv
-    (*w, Mh*d_loc)) with dv the UNSCALED delta of the held rows, as
+    Mh*d_loc) the lanes' slices of v.  Bucket 0's partials of every held
+    lane, then per bucket b: ``reduce`` over the model lanes ((W, Mh, B,
+    1 + B) -> (W, B, 1 + B); default `core.sdca.lane_ordered_sum`, the
+    stacked form, all lanes held; on a process mesh, one lane a rank,
+    the ordered all-gather sum over 'model', `engine.MeshCollectives.
+    model_sum`), then one step: b's solve and b+1's partials (nb + 1
+    launches in all).  Returns (a_new (*w, n_local), dv (*w,
+    Mh*d_loc)) with dv the UNSCALED delta of the held rows, as
     `core.sdca.dense_local_subepoch` with ``model_lanes``.
     """
     from repro_torch.core.sdca import lane_ordered_sum
@@ -455,13 +457,16 @@ def sdca_bucket_tp_subepoch(obj: Objective, Xl, yl, al, v0, lam_n, sig, *,
     v_start = v.clone()
     W, nb, _, B = xb.shape
     a_new = torch.empty((W, nb, B), dtype=torch.float32, device=xb.device)
-    for b in range(nb):
-        parts = sdca_bucket.sdca_bucket_tp_partials(
-            xb, v, b, model_lanes=Mh, source=source)
-        total = reduce(parts).contiguous()
-        a_new[:, b] = sdca_bucket.sdca_bucket_tp_solve(
+
+    def step(total, b):
+        return sdca_bucket.sdca_bucket_tp_step(
             obj, total, xb, yb, ab, v, b, float(lam_n), float(sig),
-            model_lanes=Mh, source=source)[:, 0]
+            model_lanes=Mh, source=source)
+
+    parts = step(None, -1)[1] if nb else None
+    for b in range(nb):
+        a_b, parts = step(reduce(parts).contiguous(), b)
+        a_new[:, b] = a_b[:, 0]
     dv = (v - v_start) / _scalar(sig, v0.device)
     return (a_new.reshape(*w, n_local).to(al.dtype),
             dv.reshape(*w, d).to(v0.dtype))

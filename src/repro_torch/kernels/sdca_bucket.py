@@ -12,12 +12,14 @@ capped at `MAX_BUCKET`.
 
 The tensor-parallel pair (`csrc/sdca_bucket_tp.cu`) splits the same
 arithmetic around the model lanes' per-bucket exchange, so that a lane
-can run in its own process: `sdca_bucket_tp_partials` forms each lane's
-packed [m0 | G] partials from its rows of a bucket's tile, the caller
-sums them over the model lanes in lane order, and
-`sdca_bucket_tp_solve` runs the recursion on the sum and updates each
-lane's rows of v.  The sums and the recursion are B1's
-(`csrc/dense_recursion.cuh`).
+can run in its own process: each lane forms its packed [m0 | G]
+partials from its rows of a bucket's tile, the caller sums them over
+the model lanes in lane order, and every lane runs B1's recursion
+(`csrc/dense_recursion.cuh`) on the sum and updates its rows of v.
+`sdca_bucket_tp_step` does bucket b's solve and bucket b+1's partials
+in one launch, the lane's rows staged in shared memory; its plain
+version is `sdca_bucket_tp_solve_plain` then
+`sdca_bucket_tp_partials_plain`.
 """
 from __future__ import annotations
 
@@ -65,12 +67,69 @@ def smem_layout(B: int, d: int) -> tuple[bool, bool, int]:
     return x_in, g_in, used + (gram if g_in else 0)
 
 
-def tp_solve_smem_bytes(B: int) -> int:
-    """Dynamic shared memory of one `sdca_bucket_tp_solve` block: the
-    bucket's a, y, q and deltas (4 B each a coordinate), as
-    csrc/sdca_bucket_tp.cu's launcher sizes it (8 KiB at `MAX_BUCKET`,
-    within the 48 KiB a launch takes without opting in)."""
-    return 4 * B * 4
+#: the TP step's compute warps, the rows f = w (mod TP_COMPUTE_WARPS)
+#: of warp w (csrc/sdca_bucket_tp.cu kComputeWarps); the block has a
+#: chain warp and a producer warp beside them (kThreads)
+TP_COMPUTE_WARPS = 8
+TP_THREADS = 64 + 32 * TP_COMPUTE_WARPS
+#: shared-memory slots of the step's ring and the floats of x and v rows
+#: a slot is sized for (kSlots, kSlotFloats)
+TP_SLOTS = 10
+TP_SLOT_FLOATS = 4096
+#: a lane's tile of G (kTile x kTile; 32 tiles a pass of the rows)
+TP_TILE = 4
+#: the worker's [m0 | G] is staged in shared memory up to this B
+#: (kTotalSmemMaxB), else read in place
+TP_TOTAL_SMEM_MAX_B = 64
+
+
+def _round4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def tp_gram_tiles(B: int) -> int:
+    """G's upper-triangle TP_TILE x TP_TILE tiles (`gram_tiles`)."""
+    nt = -(-B // TP_TILE)
+    return nt * (nt + 1) // 2
+
+
+def tp_gram_passes(B: int) -> int:
+    """Passes over bucket b+1's rows that form its G: 32 tiles a pass,
+    one a lane."""
+    return -(-tp_gram_tiles(B) // 32)
+
+
+def tp_lane_groups(B: int) -> int:
+    """Groups of lanes a compute warp splits its rows over while forming
+    G (`lane_groups`): a pass's tiles fit a warp this many times."""
+    return 32 // min(tp_gram_tiles(B), 32)
+
+
+def tp_stage_rows(B: int) -> int:
+    """Rows of a lane's span in one stage of the TP step (`layout_of` in
+    csrc/sdca_bucket_tp.cu): as many as a slot's floats hold with their
+    v rows, a multiple of the rows' groups (`TP_COMPUTE_WARPS` x
+    `tp_lane_groups`), at least one per group."""
+    ng = TP_COMPUTE_WARPS * tp_lane_groups(B)
+    return max(TP_SLOT_FLOATS // (B + 1) // ng * ng, ng)
+
+
+def tp_step_smem_bytes(B: int) -> int:
+    """Dynamic shared memory of one `sdca_bucket_tp_step` block, as
+    csrc/sdca_bucket_tp.cu's `layout_of` sizes it and its launcher
+    requires: the slots' FULL and EMPTY mbarriers; `TP_SLOTS` slots of
+    a stage's x rows and v rows (each with room for a 3-float offset);
+    a row of partials per compute warp; two v_new buffers; a, y, q and
+    the deltas; the worker's [m0 | G] up to `TP_TOTAL_SMEM_MAX_B`.  It
+    does not depend on d_loc (the stages stream the rows); 183,328 B at
+    B 16, above the 48 KiB a launch takes without opting in."""
+    rows = tp_stage_rows(B)
+    slot = _round4(rows * B + 3) + _round4(rows + 3)
+    floats = (4 * TP_SLOTS + TP_SLOTS * slot
+              + TP_COMPUTE_WARPS * 32 * TP_TILE * TP_TILE
+              + 2 * _round4(rows) + 4 * _round4(B)
+              + (_round4(B * (B + 1)) if B <= TP_TOTAL_SMEM_MAX_B else 0))
+    return 4 * floats
 
 
 def c_entry(stem: str, argtypes: str, entry: str = ""):
@@ -152,13 +211,13 @@ def sdca_bucket_kernel(obj: Objective, xb, yb, ab, v0, lam_n: float,
 
 # ---------------------------------------------------------------------------
 # Tensor-parallel pair (`csrc/sdca_bucket_tp.cu`): B1's arithmetic split
-# around the model lanes' exchange, one launch of each per bucket;
-# `ops.sdca_bucket_tp_subepoch` drives them.
+# around the model lanes' exchange, bucket b's solve and bucket b+1's
+# partials in one launch; `ops.sdca_bucket_tp_subepoch` drives it.
 # ---------------------------------------------------------------------------
 
-#: launches of the pair's two kernels (the plain versions do not count)
-tp_partials_launches = 0
-tp_solve_launches = 0
+#: launches of the pair's step kernel, nb + 1 a sub-epoch (the plain
+#: versions do not count)
+tp_step_launches = 0
 
 
 def _tp_lanes(xb, v, model_lanes: int):
@@ -171,54 +230,25 @@ def _tp_lanes(xb, v, model_lanes: int):
 
 
 def sdca_bucket_tp_partials_plain(xb, v, b: int, model_lanes: int):
-    """The plain PyTorch version of `sdca_bucket_tp_partials`
-    (`core.sdca.tp_partials`)."""
+    """Bucket `b`'s packed [m0 | G] partials of every held lane, plain
+    PyTorch (`core.sdca.tp_partials`): xb (W, nb, Mh*d_loc, B) f32
+    tiles, each worker's held lanes' rows stacked in lane order
+    (`ops.dense_tiles`); v (W, Mh*d_loc) the lanes' slices of v ->
+    (W, Mh, B, 1 + B), column 0 m0 = X_m^T v_m, column 1 + i G's
+    column i."""
     W, nb, d, B, Mh, d_loc = _tp_lanes(xb, v, model_lanes)
     return sdca.tp_partials(xb[:, b].reshape(W, Mh, d_loc, B),
                             v.reshape(W, Mh, d_loc))
 
 
-def sdca_bucket_tp_partials(xb, v, b: int, *, model_lanes: int,
-                            source: str = "ad-hoc arrays"):
-    """Bucket `b`'s packed [m0 | G] partials of every held lane.
-
-    xb: (W, nb, Mh*d_loc, B) f32 tiles, each worker's held lanes' rows
-    stacked in lane order (`ops.dense_tiles`); v: (W, Mh*d_loc) f32 the
-    lanes' slices of v.  Returns (W, Mh, B, 1 + B): column 0 is
-    m0 = X_m^T v_m, column 1 + i is G's column i, each a sum over the
-    lane's rows in B1's order.
-    """
-    global tp_partials_launches
-    if xb.device.type == "cpu":
-        return sdca_bucket_tp_partials_plain(xb, v, b, model_lanes)
-    if xb.device.type != "cuda":
-        raise ValueError(
-            f"sdca_bucket_tp_partials: unsupported device {xb.device}")
-    W, nb, d, B, Mh, d_loc = _tp_lanes(xb, v, model_lanes)
-    if B > MAX_BUCKET or not 0 <= b < nb:
-        raise ValueError(f"dense tiles from {source}: bucket {b} of {nb}, "
-                         f"B={B} (at most {MAX_BUCKET})")
-    check_tensor("xb", xb, (W, nb, d, B), torch.float32, xb.device)
-    check_tensor("v", v, (W, d), torch.float32, xb.device)
-    out = torch.empty((W, Mh, B, B + 1), dtype=torch.float32,
-                      device=xb.device)
-    err = c_entry("sdca_bucket_tp", "ppp" "iiiiii" "p",
-                  "sdca_bucket_tp_partials_launch")(
-        xb.data_ptr(), v.data_ptr(), out.data_ptr(), W, Mh, nb, b, d_loc, B,
-        torch.cuda.current_stream(xb.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"sdca_bucket_tp_partials kernel launch failed "
-                           f"on tiles from {source}: CUDA error {err} "
-                           f"(W={W}, Mh={Mh}, d_loc={d_loc}, B={B})")
-    tp_partials_launches += 1
-    return out
-
-
 def sdca_bucket_tp_solve_plain(obj: Objective, total, xb, yb, ab, v,
                                b: int, lam_n: float, sig: float,
                                model_lanes: int):
-    """The plain PyTorch version of `sdca_bucket_tp_solve`
-    (`core.sdca.tp_solve`); v is updated in place."""
+    """Bucket `b`'s recursion on every held lane from its worker's
+    lane-summed partials total (W, B, 1 + B), and each lane's update of
+    its rows of v (W, Mh*d_loc), IN PLACE; plain PyTorch
+    (`core.sdca.tp_solve`).  Returns a_new (W, Mh, B): every held
+    lane's copy of the bucket's duals (all equal)."""
     W, nb, d, B, Mh, d_loc = _tp_lanes(xb, v, model_lanes)
     lam = torch.tensor(lam_n, dtype=torch.float32, device=xb.device)
     s = torch.tensor(sig, dtype=torch.float32, device=xb.device)
@@ -229,42 +259,58 @@ def sdca_bucket_tp_solve_plain(obj: Objective, total, xb, yb, ab, v,
     return (ab[:, b] + deltas)[:, None].expand(W, Mh, B).contiguous()
 
 
-def sdca_bucket_tp_solve(obj: Objective, total, xb, yb, ab, v, b: int,
-                         lam_n: float, sig: float, *, model_lanes: int,
-                         source: str = "ad-hoc arrays"):
-    """Bucket `b`'s recursion on every held lane from its worker's
-    lane-summed partials, and each lane's update of its rows of v.
+def sdca_bucket_tp_step(obj: Objective, total, xb, yb, ab, v, b: int,
+                        lam_n: float, sig: float, *, model_lanes: int,
+                        source: str = "ad-hoc arrays"):
+    """Bucket `b`'s solve and bucket b+1's partials on every held lane,
+    in one launch.
 
-    total: (W, B, 1 + B) f32, the sum over every model lane of the
-    `sdca_bucket_tp_partials`; xb (W, nb, Mh*d_loc, B); yb/ab (W, nb,
-    B); v (W, Mh*d_loc) f32, UPDATED IN PLACE.  Returns a_new (W, Mh,
-    B): every held lane's copy of the bucket's duals (all equal).
+    b >= 0: the recursion on the worker's lane-summed partials ``total``
+    (W, B, 1 + B) and each lane's update of its rows of v; b + 1 < nb:
+    bucket b+1's packed [m0 | G] from the updated v.  b = -1 forms
+    bucket 0's partials alone (``total`` unused).  xb (W, nb,
+    Mh*d_loc, B) f32, each worker's held lanes' rows stacked in lane
+    order; yb/ab (W, nb, B); v (W, Mh*d_loc) f32, UPDATED IN PLACE.
+    Returns (a_new (W, Mh, B) or None, parts (W, Mh, B, 1 + B) or None):
+    every held lane's copy of bucket b's duals (all equal) and the
+    partials, column 0 m0 = X_m^T v_m, column 1 + i G's column i.
     """
-    global tp_solve_launches
+    global tp_step_launches
+    W, nb, d, B, Mh, d_loc = _tp_lanes(xb, v, model_lanes)
+    nxt = b + 1 if b + 1 < nb else -1
     if xb.device.type == "cpu":
-        return sdca_bucket_tp_solve_plain(obj, total, xb, yb, ab, v, b,
-                                          lam_n, sig, model_lanes)
+        a_new = (sdca_bucket_tp_solve_plain(obj, total, xb, yb, ab, v, b,
+                                            lam_n, sig, model_lanes)
+                 if b >= 0 else None)
+        parts = (sdca_bucket_tp_partials_plain(xb, v, nxt, model_lanes)
+                 if nxt >= 0 else None)
+        return a_new, parts
     if xb.device.type != "cuda":
         raise ValueError(
-            f"sdca_bucket_tp_solve: unsupported device {xb.device}")
-    W, nb, d, B, Mh, d_loc = _tp_lanes(xb, v, model_lanes)
-    if B > MAX_BUCKET or not 0 <= b < nb:
+            f"sdca_bucket_tp_step: unsupported device {xb.device}")
+    if B > MAX_BUCKET or not -1 <= b < nb:
         raise ValueError(f"dense tiles from {source}: bucket {b} of {nb}, "
                          f"B={B} (at most {MAX_BUCKET})")
     dev = xb.device
-    for name, t, shape in (("total", total, (W, B, B + 1)),
-                           ("xb", xb, (W, nb, d, B)), ("yb", yb, (W, nb, B)),
-                           ("ab", ab, (W, nb, B)), ("v", v, (W, d))):
+    for name, t, shape in ((("total", total, (W, B, B + 1)),) if b >= 0
+                           else ()) + (
+            ("xb", xb, (W, nb, d, B)), ("yb", yb, (W, nb, B)),
+            ("ab", ab, (W, nb, B)), ("v", v, (W, d))):
         check_tensor(name, t, shape, torch.float32, dev)
-    a_out = torch.empty((W, Mh, B), dtype=torch.float32, device=dev)
-    err = c_entry("sdca_bucket_tp", "pppppp" "iiiiii" "ff" "i" "p",
-                  "sdca_bucket_tp_solve_launch")(
-        total.data_ptr(), xb.data_ptr(), yb.data_ptr(), ab.data_ptr(),
-        v.data_ptr(), a_out.data_ptr(), W, Mh, nb, b, d_loc, B, lam_n, sig,
-        OBJ_CODES[obj.name], torch.cuda.current_stream(dev).cuda_stream)
+    a_new = (torch.empty((W, Mh, B), dtype=torch.float32, device=dev)
+             if b >= 0 else None)
+    parts = (torch.empty((W, Mh, B, B + 1), dtype=torch.float32,
+                         device=dev) if nxt >= 0 else None)
+    ptr = (lambda t: t.data_ptr() if t is not None else None)
+    err = c_entry("sdca_bucket_tp", "ppppppp" "iiiiiii" "ff" "ii" "p",
+                  "sdca_bucket_tp_step_launch")(
+        ptr(total if b >= 0 else None), xb.data_ptr(), yb.data_ptr(),
+        ab.data_ptr(), v.data_ptr(), ptr(a_new), ptr(parts), W, Mh, nb, b,
+        nxt, d_loc, B, lam_n, sig, OBJ_CODES[obj.name],
+        tp_step_smem_bytes(B), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"sdca_bucket_tp_solve kernel launch failed on "
+        raise RuntimeError(f"sdca_bucket_tp_step kernel launch failed on "
                            f"tiles from {source}: CUDA error {err} (W={W}, "
-                           f"Mh={Mh}, d_loc={d_loc}, B={B})")
-    tp_solve_launches += 1
-    return a_out
+                           f"Mh={Mh}, d_loc={d_loc}, B={B}, b={b})")
+    tp_step_launches += 1
+    return a_new, parts

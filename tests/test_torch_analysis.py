@@ -90,13 +90,22 @@ def test_lint_kernel_contract_and_rng_rules():
 
 
 def test_tp_solve_contract_has_its_smem_model():
-    """The TP pair's solve registers the model of its dynamic shared
-    memory (a, y, q and deltas: 16 B a coordinate), within the 48 KiB a
-    launch takes without opting in at the recursion's cap."""
-    c = contracts.KERNEL_CONTRACTS["sdca_bucket.sdca_bucket_tp_solve"]
-    assert c["smem_estimate"].endswith(":tp_solve_smem_bytes")
-    assert sdca_bucket.tp_solve_smem_bytes(16) == 16 * 16
-    assert sdca_bucket.tp_solve_smem_bytes(sdca_bucket.MAX_BUCKET) <= 48 << 10
+    """The TP pair's step (the solve and the next bucket's partials in
+    one launch) registers the model of its dynamic shared memory: ten
+    slots of staged rows, the warps' partials, a, y, q, the deltas and,
+    up to B 64, the worker's [m0 | G]; above the 48 KiB a launch takes
+    without opting in, within the opt-in at every B up to the
+    recursion's cap, and the budget sweep finds it clean at its edges."""
+    c = contracts.KERNEL_CONTRACTS["sdca_bucket.sdca_bucket_tp_step"]
+    assert c["smem_estimate"].endswith(":tp_step_smem_bytes")
+    assert sdca_bucket.tp_step_smem_bytes(16) == 183_328
+    assert sdca_bucket.tp_step_smem_bytes(48) == 184_480
+    assert sdca_bucket.tp_step_smem_bytes(16) > 48 << 10
+    assert max(sdca_bucket.tp_step_smem_bytes(B) for B in range(
+        1, sdca_bucket.MAX_BUCKET + 1)) <= contracts.SMEM_OPTIN_BYTES
+    edges = budget.tp_step_edges()
+    assert (sdca_bucket.MAX_BUCKET, 1) in edges and (16, 241) in edges
+    assert [f for B, d in edges for f in budget.audit_tp_step(B, d)] == []
 
 
 def test_rules_registry_complete_and_documented():

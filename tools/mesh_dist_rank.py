@@ -102,7 +102,7 @@ def _zero_launches() -> None:
     from repro_torch.kernels import sdca_bucket as kd
     from repro_torch.kernels import sdca_sparse_bucket as ks
     kd.launches = ks.launches = 0
-    kd.tp_partials_launches = kd.tp_solve_launches = 0
+    kd.tp_step_launches = 0
     ks.gather_launches = ks.sharded_launches = 0
 
 
@@ -110,8 +110,7 @@ def _launches() -> dict:
     from repro_torch.kernels import sdca_bucket as kd
     from repro_torch.kernels import sdca_sparse_bucket as ks
     return {"sdca_bucket": kd.launches, "sdca_sparse_bucket": ks.launches,
-            "sdca_bucket_tp_partials": kd.tp_partials_launches,
-            "sdca_bucket_tp_solve": kd.tp_solve_launches,
+            "sdca_bucket_tp_step": kd.tp_step_launches,
             "sdca_sparse_gather_bucket": ks.gather_launches,
             "sdca_sparse_sharded_bucket": ks.sharded_launches}
 

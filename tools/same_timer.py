@@ -2,13 +2,17 @@
 with this checkout's kernel timer, `chip_smoke.cuda_ms`.
 
     python3 tools/same_timer.py OTHER/chip_smoke.py
+    python3 tools/same_timer.py OTHER/chip_smoke.py --only check_tp_pair
     python3 tools/same_timer.py OTHER/tools/torch_breakdown.py --paths sharded
 
 So that the kernel times of two trees (a commit and its parent, say,
 the parent unpacked by `git archive` into a git-ignored directory) are
 read under one measurement where the trees' timers differ.  The other
 tree runs as it is, on its own sources and its own kernel build; only
-its `chip_smoke.cuda_ms` is replaced.  Prints one JSON line naming the
+its `chip_smoke.cuda_ms` is replaced.  With ``--only NAME`` the other
+`chip_smoke.py` runs its one function NAME on cuda:0 (a check phase
+that takes the device, say `check_tp_pair`, which builds what it
+launches) instead of its whole `main`.  Prints one JSON line naming the
 timer before the script's own output.  Needs one CUDA GPU and nvcc.
 """
 from __future__ import annotations
@@ -45,7 +49,12 @@ def main() -> None:
                       "timer": f"{HERE / 'chip_smoke.py'}:cuda_ms"}),
           flush=True)
     sys.argv = [str(target)] + sys.argv[2:]
-    if target.name == "chip_smoke.py":
+    if target.name == "chip_smoke.py" and sys.argv[1:2] == ["--only"]:
+        import torch
+        if not torch.cuda.is_available():
+            raise SystemExit("same_timer --only: no CUDA device")
+        getattr(cs, sys.argv[2])(torch.device("cuda"))
+    elif target.name == "chip_smoke.py":
         cs.main()
     else:
         runpy.run_path(str(target), run_name="__main__")
