@@ -3,10 +3,9 @@
 A copy of the reference's `configs/base.py` with `dtype` a
 `torch.dtype`, without the reference's mesh and optimizer fields
 (`zero`, `shard_resid`, `layout`, `opt_dtype`: the port serves on one
-card).  The decoder-only configurations are registered: GQA / local
-attention, MLA, MoE and RG-LRU blocks.  Asking for one of the
-reference's other architectures raises `NotImplementedError` naming
-what it waits on (ROADMAP A16 lists what is left).
+card).  Every one of the reference's ten architectures is registered:
+GQA / local attention, MLA, MoE, RG-LRU and xLSTM blocks, the
+encoder-decoder and the vision frontend's stub.
 """
 from __future__ import annotations
 
@@ -17,14 +16,8 @@ from typing import Optional, Tuple
 import torch
 
 #: the reference registry's architectures that are not ported yet, and
-#: what each waits on
-UNPORTED = {
-    "xlstm-1.3b": "its mLSTM and sLSTM blocks",
-    "whisper-base": "its encoder-decoder stack with the audio frontend, "
-                    "layernorm and learned positions",
-    "phi-3-vision-4.2b": "its vision frontend (patch embeddings ahead of "
-                         "the tokens)",
-}
+#: what each waits on: none
+UNPORTED: dict[str, str] = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,8 +109,7 @@ def _lookup(name: str):
         return _REGISTRY[name]
     if name in UNPORTED:
         raise NotImplementedError(
-            f"{name!r} is not ported to repro_torch yet: {UNPORTED[name]} "
-            f"wait in ROADMAP A16")
+            f"{name!r} is not ported to repro_torch yet: {UNPORTED[name]}")
     raise KeyError(f"unknown architecture {name!r}; the port serves "
                    f"{list_archs()}")
 
@@ -139,5 +131,5 @@ def _ensure_loaded():
     if _REGISTRY:
         return
     from . import (deepseek_v2_lite, granite_20b,  # noqa: F401
-                   internlm2_20b, kimi_k2, minicpm3_4b, recurrentgemma_2b,
-                   smollm_360m)
+                   internlm2_20b, kimi_k2, minicpm3_4b, phi3_vision,
+                   recurrentgemma_2b, smollm_360m, whisper_base, xlstm_1_3b)

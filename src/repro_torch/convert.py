@@ -61,7 +61,10 @@ def lm_params_from_reference(params_np: Mapping[str, Any], cfg,
 
     The reference stacks the repeated superblocks: every leaf of
     `params_np["blocks"]` has a leading n_rep axis.  The port keeps one
-    dict per superblock, so those leaves are unstacked.  Dtypes are kept
+    dict per superblock, so those leaves are unstacked.  The other
+    leaves (an encoder's `enc_blocks`, a list in both packages, and
+    `enc_norm`, `enc_pos`, `pos_embed`, a LayerNorm's `b`, the xLSTM
+    cores' f32 gate weights) are carried as they are.  Dtypes are kept
     as given; every leaf's shape is checked against the port's
     `lm.param_specs(cfg)`."""
     from repro_torch.models import lm

@@ -155,17 +155,21 @@ def widen_cache(cache: dict, cfg, batch: int, max_seq: int) -> dict:
 
 
 @torch.inference_mode()
-def generate(params, tokens, cfg, gen: int, *, stats: dict | None = None):
+def generate(params, tokens, cfg, gen: int, *, stats: dict | None = None,
+             enc_out=None):
     """Prefill `tokens` (B, P), widen the caches to P + gen, then take
-    gen - 1 greedy decode steps.  Returns the (B, gen) generated ids; with
-    `stats`, writes into it the prefill and decode seconds (the host
-    clock around work that ends in a device synchronize) and the largest
-    |logit| of the prefill (inf or NaN if any logit is not finite)."""
+    gen - 1 greedy decode steps.  `enc_out`: an encoder-decoder's
+    encoder output (`lm.encoder_fwd`).  Returns the (B, gen) generated
+    ids; with `stats`, writes into it the prefill and decode seconds (the
+    host clock around work that ends in a device synchronize) and the
+    largest |logit| of the prefill (inf or NaN if any logit is not
+    finite)."""
     dev = tokens.device
     B, P = tokens.shape
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = lm.forward(params, tokens, cfg, mode="prefill")
+    logits, cache = lm.forward(params, tokens, cfg, mode="prefill",
+                               enc_out=enc_out)
     cache = widen_cache(cache, cfg, B, P + gen)
     tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
     _sync(dev)
@@ -197,9 +201,14 @@ def serve(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
           stats: dict | None = None):
     """Random weights of `cfg` (seeded), a random prompt batch
     (`np.random.default_rng(seed)`, as the reference draws it), prefill,
-    then greedy decode.  Returns the (batch, gen) generated token ids.
-    `stats`, when given, receives setup / prefill / decode seconds,
-    decode tokens per second and the parameters' bytes."""
+    then greedy decode.  An audio config's frames are drawn first from
+    the same generator, (batch, enc_seq, d_model) standard normal, and
+    encoded before the prefill's clock starts, as the reference does; a
+    vision config is served on tokens only, as the reference's `serve`
+    passes no patches.  Returns the (batch, gen) generated token ids.
+    `stats`, when given, receives setup / encode (audio) / prefill /
+    decode seconds, decode tokens per second and the parameters'
+    bytes."""
     dev = resolve_device(device)
     _sync(dev)
     t0 = time.perf_counter()
@@ -207,10 +216,18 @@ def serve(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
     _sync(dev)
     t_setup = time.perf_counter() - t0
     rng = np.random.default_rng(seed)
+    st = {} if stats is None else stats
+    enc_out = None
+    if cfg.frontend == "audio":
+        frames = torch.as_tensor(rng.standard_normal(
+            (batch, cfg.enc_seq, cfg.d_model), np.float32), device=dev)
+        t0 = time.perf_counter()
+        enc_out = lm.encoder_fwd(params, frames, cfg)
+        _sync(dev)
+        st["encode_s"] = time.perf_counter() - t0
     tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (batch, prompt_len)),
                              dtype=torch.int64, device=dev)
-    st = {} if stats is None else stats
-    ids = generate(params, tokens, cfg, gen, stats=st)
+    ids = generate(params, tokens, cfg, gen, stats=st, enc_out=enc_out)
     st.update(setup_s=t_setup, param_bytes=sum(
         t.numel() * t.element_size() for t in tree_leaves(params)))
     if verbose:

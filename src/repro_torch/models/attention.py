@@ -1,8 +1,8 @@
-"""Attention variants: GQA / MQA full (causal) or sliding-window
-(local), and MLA (multi-head latent attention).
+"""Attention variants: GQA / MQA causal, sliding-window (local) or full,
+cross-attention (`gqa_fwd(kv_x=)`), and MLA (multi-head latent
+attention).
 
-Mirrors the reference's `models/attention.py` but for cross-attention,
-which waits with the encoder-decoder (ROADMAP A16).  All softmax math
+Mirrors the reference's `models/attention.py`.  All softmax math
 in f32.  Prefill runs the flash kernel (B5) when the tensors are on the
 card, else the blocked online-softmax formulation, which never
 materialises the (S x S) scores.  Decode is one token against a cache,
@@ -86,16 +86,20 @@ def gqa_specs(cfg) -> dict:
 
 
 def gqa_fwd(p: dict, x, cfg, *, positions, kind: str = "causal",
-            use_rope: bool = True):
-    """Full-sequence forward (prefill).  x: (B, S, d)."""
+            kv_x=None, use_rope: bool = True):
+    """Full-sequence forward (prefill).  x: (B, S, d).  With `kv_x`
+    (B, Sk, d), cross-attention: k and v come from it, and RoPE, if
+    any, rotates q alone."""
     B, S, _ = x.shape
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    src = x if kv_x is None else kv_x
     q = (x @ p["wq"]).reshape(B, S, H, hd)
-    k = (x @ p["wk"]).reshape(B, S, Hkv, hd)
-    v = (x @ p["wv"]).reshape(B, S, Hkv, hd)
+    k = (src @ p["wk"]).reshape(B, src.shape[1], Hkv, hd)
+    v = (src @ p["wv"]).reshape(B, src.shape[1], Hkv, hd)
     if use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        if kv_x is None:
+            k = apply_rope(k, positions, cfg.rope_theta)
     out = attention(q, k, v, q_positions=positions, kind=kind,
                     window=cfg.window, chunk=cfg.attn_chunk)
     return out.reshape(B, S, H * hd) @ p["wo"]

@@ -83,6 +83,15 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor,
     return ((xf * scale) * gamma.float()).to(x.dtype)
 
 
+def layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * gamma.float() + beta.float()).to(x.dtype)
+
+
 def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 

@@ -1,14 +1,18 @@
-"""LM assembly for the decoder-only block kinds: prefill and decode.
+"""LM assembly: prefill and decode for every block kind.
 
-Mirrors the reference's `models/lm.py` for `attn` (GQA, local or MLA
-attention + MLP), `moe` (the same attention + a mixture of experts) and
-`rec` (RG-LRU + MLP) blocks.  The reference stacks the repeated
-superblocks and drives them with `lax.scan`; here `params["blocks"]`
-(and `cache["blocks"]`) is a list with one entry per superblock, walked
-by a Python loop.  MoE configs lead with `first_dense_layers` unrolled
-`attn` blocks (`params["head_blocks"]`).  The xLSTM blocks, the
-encoder-decoder, the modality frontends, learned positions and
-layernorm raise `NotImplementedError` (ROADMAP A16).
+Mirrors the reference's `models/lm.py`: `attn` (GQA, local or MLA
+attention + MLP), `moe` (the same attention + a mixture of experts),
+`rec` (RG-LRU + MLP), the xLSTM blocks `mlstm` and `slstm` (no MLP),
+and the encoder-decoder's `enc_attn` (full self-attention + MLP) and
+`xattn` (causal self-attention, cross-attention over the encoder's
+output, MLP).  The reference stacks the repeated superblocks and drives
+them with `lax.scan`; here `params["blocks"]` (and `cache["blocks"]`)
+is a list with one entry per superblock, walked by a Python loop.  MoE
+configs lead with `first_dense_layers` unrolled `attn` blocks
+(`params["head_blocks"]`); the encoder's blocks are `params
+["enc_blocks"]`, run by `encoder_fwd`.  Norms are RMSNorm or LayerNorm
+(`cfg.norm`), positions RoPE or learned (`cfg.learned_pos`); a vision
+config's patch embeddings go ahead of the tokens (`extra_embeds`).
 
 Modes (the reference's `train` mode waits with the train step):
   prefill — full-sequence forward that also fills the KV/state caches
@@ -24,23 +28,14 @@ import torch
 from . import attention as attn
 from . import moe as moe_lib
 from . import recurrent as rec
-from .layers import ParamSpec, apply_rope, mlp_apply, mlp_specs, rmsnorm
-
-_TODO = "is not ported to repro_torch yet (ROADMAP A16)"
-
-
-def _check_supported(cfg) -> None:
-    for what, bad in (("the encoder-decoder stack", cfg.is_encoder_decoder),
-                      (f"the {cfg.frontend} frontend", cfg.frontend),
-                      ("learned positions", cfg.learned_pos),
-                      (f"{cfg.norm}", cfg.norm != "rmsnorm")):
-        if bad:
-            raise NotImplementedError(f"{cfg.name}: {what} {_TODO}")
+from .layers import (ParamSpec, apply_rope, layernorm, mlp_apply, mlp_specs,
+                     rmsnorm)
 
 
 def layer_layout(cfg) -> tuple[list[str], list[str], int, list[str]]:
     """-> (head_kinds, pattern, n_rep, tail_kinds)."""
-    _check_supported(cfg)
+    if cfg.is_encoder_decoder:
+        return [], ["xattn"], cfg.n_layers, []
     if cfg.block_pattern:
         pat = list(cfg.block_pattern)
         n_rep, rem = divmod(cfg.n_layers, len(pat))
@@ -52,18 +47,38 @@ def layer_layout(cfg) -> tuple[list[str], list[str], int, list[str]]:
 
 
 def _norm_specs(cfg) -> dict:
-    return {"g": ParamSpec((cfg.d_model,), torch.float32, "ones")}
+    g = ParamSpec((cfg.d_model,), torch.float32, "ones")
+    if cfg.norm == "layernorm":
+        return {"g": g, "b": ParamSpec((cfg.d_model,), torch.float32,
+                                       "zeros")}
+    return {"g": g}
+
+
+def _norm(p: dict, x):
+    if "b" in p:
+        return layernorm(x, p["g"], p["b"])
+    return rmsnorm(x, p["g"])
+
+
+_ATTN_KINDS = ("attn", "moe", "enc_attn", "xattn")
 
 
 def block_specs(cfg, kind: str) -> dict:
     sp: dict[str, Any] = {"ln1": _norm_specs(cfg)}
-    if kind in ("attn", "moe"):
+    if kind in ("mlstm", "slstm"):       # the block's projections are its FFN
+        sp["core"] = (rec.mlstm_specs(cfg) if kind == "mlstm"
+                      else rec.slstm_specs(cfg))
+        return sp
+    if kind in _ATTN_KINDS:
         sp["attn"] = (attn.mla_specs(cfg) if cfg.attention == "mla"
                       else attn.gqa_specs(cfg))
+        if kind == "xattn":
+            sp["ln_x"] = _norm_specs(cfg)
+            sp["xattn"] = attn.gqa_specs(cfg)
     elif kind == "rec":
         sp["rec"] = rec.rglru_block_specs(cfg)
     else:
-        raise NotImplementedError(f"block kind {kind!r} {_TODO}")
+        raise ValueError(f"unknown block kind {kind!r}")
     sp["ln2"] = _norm_specs(cfg)
     if kind == "moe":
         sp["moe"] = moe_lib.moe_specs(cfg)
@@ -81,40 +96,100 @@ def block_cache_shape(cfg, kind: str, batch: int, max_seq: int) -> dict:
             # `window` keys, so the cache is O(window), not O(seq)
             return attn.gqa_cache_shape(cfg, batch, min(cfg.window, max_seq))
         return attn.gqa_cache_shape(cfg, batch, max_seq)
+    if kind == "xattn":
+        enc = attn.gqa_cache_shape(cfg, batch, cfg.enc_seq)
+        return {"self": attn.gqa_cache_shape(cfg, batch, max_seq),
+                "cross_k": enc["k"], "cross_v": enc["v"]}
     if kind == "rec":
         return rec.rglru_cache_shape(cfg, batch)
-    raise NotImplementedError(f"block kind {kind!r} {_TODO}")
+    if kind == "mlstm":
+        return rec.mlstm_cache_shape(cfg, batch)
+    if kind == "slstm":
+        return rec.slstm_cache_shape(cfg, batch)
+    raise ValueError(f"unknown block kind {kind!r}")
+
+
+def _attn_kind(cfg, kind: str) -> str:
+    if kind == "enc_attn":
+        return "full"
+    return "local" if cfg.attention == "local" else "causal"
 
 
 def apply_block(p: dict, x, cfg, kind: str, *, positions=None,
-                mode: str = "prefill", cache=None, pos=None):
-    """Returns (x_new, new_cache)."""
-    h = rmsnorm(x, p["ln1"]["g"])
-    if kind in ("attn", "moe"):
-        akind = "local" if cfg.attention == "local" else "causal"
+                mode: str = "prefill", cache=None, pos=None, enc_out=None):
+    """Returns (x_new, new_cache); an encoder block (`enc_attn`) keeps no
+    cache and returns None."""
+    h = _norm(p["ln1"], x)
+    if kind in ("mlstm", "slstm"):
+        if mode == "decode":
+            step = rec.mlstm_decode if kind == "mlstm" else rec.slstm_decode
+            r, new_cache = step(p["core"], h, cache, cfg)
+        else:
+            fwd = rec.mlstm_fwd if kind == "mlstm" else rec.slstm_fwd
+            r, new_cache = fwd(p["core"], h, cfg)
+        return x + r, new_cache
+    if kind in _ATTN_KINDS:
+        akind = _attn_kind(cfg, kind)
         mla = cfg.attention == "mla"
+        self_cache = cache["self"] if kind == "xattn" and cache else cache
         if mode == "decode" and mla:
-            a, new_cache = attn.mla_decode(p["attn"], h, cache, cfg, pos=pos)
+            a, new_cache = attn.mla_decode(p["attn"], h, self_cache, cfg,
+                                           pos=pos)
         elif mode == "decode":
-            a, new_cache = attn.gqa_decode(p["attn"], h, cache, cfg, pos=pos,
-                                           kind=akind, use_rope=cfg.use_rope)
+            a, new_cache = attn.gqa_decode(p["attn"], h, self_cache, cfg,
+                                           pos=pos, kind=akind,
+                                           use_rope=cfg.use_rope)
         else:
             a = (attn.mla_fwd(p["attn"], h, cfg, positions=positions) if mla
                  else attn.gqa_fwd(p["attn"], h, cfg, positions=positions,
                                    kind=akind, use_rope=cfg.use_rope))
-            new_cache = _prefill_cache(p["attn"], h, cfg, positions)
+            new_cache = (None if kind == "enc_attn"
+                         else _prefill_cache(p["attn"], h, cfg, positions))
+        x = x + a
+        if kind == "xattn":
+            a, cross = _cross_attention(p, _norm(p["ln_x"], x), cfg,
+                                        positions=positions, mode=mode,
+                                        cache=cache, enc_out=enc_out)
+            x = x + a
+            new_cache = {"self": new_cache, **cross}
     elif kind == "rec":
         if mode == "decode":
             a, new_cache = rec.rglru_block_decode(p["rec"], h, cache, cfg)
         else:
             a, new_cache = rec.rglru_block_fwd(p["rec"], h, cfg)
+        x = x + a
     else:
-        raise NotImplementedError(f"block kind {kind!r} {_TODO}")
-    x = x + a
-    h2 = rmsnorm(x, p["ln2"]["g"])
+        raise ValueError(f"unknown block kind {kind!r}")
+    h2 = _norm(p["ln2"], x)
     if kind == "moe":
         return x + moe_lib.moe_apply(p["moe"], h2, cfg, act=cfg.act), new_cache
     return x + mlp_apply(p["mlp"], h2, cfg.act), new_cache
+
+
+def _cross_attention(p: dict, hx, cfg, *, positions, mode: str, cache,
+                     enc_out):
+    """The `xattn` block's attention over the encoder's output: hx the
+    normed residual (B, S, d).  Prefill runs B5 (full, Sq != Sk) and
+    caches the encoder's K/V in bf16; decode attends over them in f32
+    with no kernel, as the reference writes it inline.  Returns (out,
+    {"cross_k", "cross_v"})."""
+    px = p["xattn"]
+    B = hx.shape[0]
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if mode == "decode":
+        ck, cv = cache["cross_k"], cache["cross_v"]
+        qg = (hx @ px["wq"]).reshape(B, Hkv, H // Hkv, hd).float()
+        s = torch.einsum("bkgh,bskh->bkgs", qg, ck.float()) * (hd ** -0.5)
+        o = torch.einsum("bkgs,bskh->bkgh", torch.softmax(s, dim=-1),
+                         cv.float())
+        a = o.reshape(B, 1, H * hd).to(hx.dtype) @ px["wo"]
+        return a, {"cross_k": ck, "cross_v": cv}
+    a = attn.gqa_fwd(px, hx, cfg, positions=positions, kind="full",
+                     kv_x=enc_out, use_rope=False)
+    Se = enc_out.shape[1]
+    ck = (enc_out @ px["wk"]).reshape(B, Se, Hkv, hd).to(torch.bfloat16)
+    cv = (enc_out @ px["wv"]).reshape(B, Se, Hkv, hd).to(torch.bfloat16)
+    return a, {"cross_k": ck, "cross_v": cv}
 
 
 def _prefill_cache(p, h, cfg, positions) -> dict:
@@ -143,15 +218,24 @@ def _prefill_cache(p, h, cfg, positions) -> dict:
 
 def param_specs(cfg) -> dict:
     head, pat, n_rep, tail = layer_layout(cfg)
-    return {
+    sp: dict[str, Any] = {
         "embed": ParamSpec((cfg.padded_vocab, cfg.d_model), scale=0.02),
         "final_norm": _norm_specs(cfg),
         "lm_head": ParamSpec((cfg.d_model, cfg.padded_vocab), scale=0.02),
-        "head_blocks": [block_specs(cfg, k) for k in head],
-        "blocks": [{str(i): block_specs(cfg, k) for i, k in enumerate(pat)}
-                   for _ in range(n_rep)],
-        "tail_blocks": [block_specs(cfg, k) for k in tail],
     }
+    if cfg.learned_pos:
+        sp["pos_embed"] = ParamSpec((cfg.max_seq, cfg.d_model), scale=0.02)
+    sp["head_blocks"] = [block_specs(cfg, k) for k in head]
+    sp["blocks"] = [{str(i): block_specs(cfg, k) for i, k in enumerate(pat)}
+                    for _ in range(n_rep)]
+    sp["tail_blocks"] = [block_specs(cfg, k) for k in tail]
+    if cfg.is_encoder_decoder:
+        sp["enc_blocks"] = [block_specs(cfg, "enc_attn")
+                            for _ in range(cfg.n_enc_layers)]
+        sp["enc_norm"] = _norm_specs(cfg)
+        if cfg.learned_pos:
+            sp["enc_pos"] = ParamSpec((cfg.enc_seq, cfg.d_model), scale=0.02)
+    return sp
 
 
 def cache_shapes(cfg, batch: int, max_seq: int) -> dict:
@@ -164,24 +248,53 @@ def cache_shapes(cfg, batch: int, max_seq: int) -> dict:
     }
 
 
-def _embed(params, tokens, cfg):
-    return params["embed"][tokens].to(cfg.dtype)
+def _embed(params, tokens, cfg, *, pos_offset: int = 0):
+    x = params["embed"][tokens]
+    if cfg.learned_pos:
+        S = tokens.shape[1]
+        if pos_offset + S > cfg.max_seq:
+            # the reference's dynamic slice would clamp the offset and
+            # give these tokens other positions' embeddings
+            raise ValueError(f"{cfg.name}: positions up to "
+                             f"{pos_offset + S} exceed the {cfg.max_seq} "
+                             f"learned positions")
+        pe = params["pos_embed"][pos_offset:pos_offset + S].to(x.dtype)
+        x = x + pe[None]
+    return x.to(cfg.dtype)
+
+
+def encoder_fwd(params, frames, cfg):
+    """frames: (B, enc_seq, d), the audio frontend's stub embeddings.
+    Returns the encoder's normed output (B, enc_seq, d) in cfg.dtype."""
+    x = frames.to(cfg.dtype)
+    if cfg.learned_pos:
+        x = x + params["enc_pos"][None, :x.shape[1]].to(cfg.dtype)
+    positions = torch.arange(x.shape[1], device=x.device)
+    for bp in params["enc_blocks"]:
+        x, _ = apply_block(bp, x, cfg, "enc_attn", positions=positions)
+    return _norm(params["enc_norm"], x)
 
 
 def forward(params, tokens, cfg, *, mode: str = "prefill", cache=None,
-            pos=None):
+            pos=None, enc_out=None, extra_embeds=None):
     """tokens: (B, S) integer (S = 1 for decode, at position `pos`, a
-    Python int).  Returns (logits (B, S, padded_vocab), caches).  The
+    Python int).  `enc_out`: the encoder's output (`encoder_fwd`), which
+    an encoder-decoder's prefill attends to (its decode reads the cached
+    cross K/V).  `extra_embeds`: (B, P, d) embeddings put ahead of the
+    tokens (a vision config's patches), positions then running over
+    P + S.  Returns (logits (B, P + S, padded_vocab), caches).  The
     reference's activation sharding constraints are no-ops without a
     mesh; on one card there is none, so they are left out."""
     if mode not in ("prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
     head, pat, n_rep, tail = layer_layout(cfg)
-    x = _embed(params, tokens, cfg)
+    x = _embed(params, tokens, cfg, pos_offset=pos if mode == "decode" else 0)
+    if extra_embeds is not None:
+        x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
     S = x.shape[1]
     positions = (torch.arange(S, device=x.device) if mode == "prefill"
                  else None)
-    kw = dict(positions=positions, mode=mode, pos=pos)
+    kw = dict(positions=positions, mode=mode, pos=pos, enc_out=enc_out)
 
     def run(kinds, blocks, caches):
         nonlocal x
@@ -204,7 +317,6 @@ def forward(params, tokens, cfg, *, mode: str = "prefill", cache=None,
     new_tail = run(tail, params["tail_blocks"],
                    cache["tail"] if cache is not None else None)
 
-    x = rmsnorm(x, params["final_norm"]["g"])
+    x = _norm(params["final_norm"], x)
     logits = x @ params["lm_head"].to(cfg.dtype)
     return logits, {"head": new_head, "blocks": new_blocks, "tail": new_tail}
-

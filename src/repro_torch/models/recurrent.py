@@ -1,21 +1,34 @@
-"""The RG-LRU recurrent block (Griffin / RecurrentGemma).
+"""Recurrent blocks: RG-LRU (Griffin / RecurrentGemma) and xLSTM's
+mLSTM and sLSTM.
 
-Mirrors the RG-LRU half of the reference's `models/recurrent.py`
-(mLSTM and sLSTM wait: ROADMAP A16): in -> (x branch, GELU gate branch)
--> causal conv1d -> RG-LRU -> out projection.  Prefill runs the
-recurrence through `kernels.ops.rglru_scan` (the B6 kernel on the card,
-its plain version on the CPU), which computes the same function as the
-reference's associative scan; decode is one O(1) state update.
+Mirrors the reference's `models/recurrent.py`.  RG-LRU: in -> (x
+branch, GELU gate branch) -> causal conv1d -> RG-LRU -> out projection.
+Prefill runs the recurrence through `kernels.ops.rglru_scan` (the B6
+kernel on the card, its plain version on the CPU), which computes the
+same function as the reference's associative scan; decode is one O(1)
+state update.
+
+mLSTM prefill is the reference's chunkwise-parallel form (quadratic
+within a chunk, the (C, n, m) state carried across chunks); sLSTM is a
+loop over the tokens, as the reference's `lax.scan`.  Neither has a
+kernel in the reference: both are plain PyTorch here.  Each prefill
+returns its final state as the decode cache, where the reference runs
+its decode step over the prompt once more (`models/lm.py`
+`_xlstm_prefill_cache`): the same state, and for mLSTM with another
+stabilizer m (see `mlstm_fwd`).  The reference multiplies a bf16 x by
+the f32 gate weights `w_i` and `w_f`, which JAX promotes to an f32
+product; PyTorch refuses mixed dtypes, so x is cast to f32 first.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
-from .layers import CacheSpec, ParamSpec, act_fn
+from .layers import CacheSpec, ParamSpec, act_fn, rmsnorm
 
 RG_C = 8.0
 
@@ -99,3 +112,190 @@ def rglru_block_decode(p: dict, x, cache: dict, cfg):
     h = at * cache["h"] + bt
     out = (h[:, None].to(x.dtype) * gb) @ p["w_out"]
     return out, {"h": h, "conv": conv_state.to(torch.bfloat16)}
+
+
+# ---------------------------------------------------------------------------
+# mLSTM (matrix-memory LSTM): chunkwise-parallel prefill, recurrent decode
+# ---------------------------------------------------------------------------
+
+def mlstm_specs(cfg) -> dict:
+    d, H = cfg.d_model, cfg.n_heads
+    return {"wq": ParamSpec((d, d)), "wk": ParamSpec((d, d)),
+            "wv": ParamSpec((d, d)),
+            "w_i": ParamSpec((d, H), torch.float32),
+            "w_f": ParamSpec((d, H), torch.float32),
+            "w_o": ParamSpec((d, d)), "wo": ParamSpec((d, d)),
+            "ln_g": ParamSpec((d,), torch.float32, "ones")}
+
+
+def _mlstm_heads(p, x, cfg):
+    B, S, d = x.shape
+    H = cfg.n_heads
+    hd = d // H
+    # the reference divides a bf16 k by a weakly typed sqrt(hd), which
+    # JAX rounds to k's dtype first
+    rs = float(torch.tensor(math.sqrt(hd)).to(x.dtype))
+    q = (x @ p["wq"]).reshape(B, S, H, hd)
+    k = (x @ p["wk"]).reshape(B, S, H, hd) / rs
+    v = (x @ p["wv"]).reshape(B, S, H, hd)
+    xf = x.float()
+    return q, k, v, xf @ p["w_i"], xf @ p["w_f"]        # gates (B, S, H)
+
+
+def _mlstm_chunk(qc, kc, vc, lf, ic, C0, n0, m0, mask):
+    """One chunk of c tokens: qc/kc/vc (B, c, H, hd) f32, lf/ic (B, c, H)
+    log forget gates and input pre-activations; (C0, n0, m0) the state
+    before it.  Returns (h (B, c, H, hd), the state after it)."""
+    F_ = torch.cumsum(lf, dim=1)                      # within-chunk log f
+    # stabilizer per position: max(F_t + m0, max_{s<=t} F_t - F_s + i_s)
+    Dm = F_[:, :, None, :] - F_[:, None, :, :] + ic[:, None, :, :]
+    Dm = torch.where(mask[None, :, :, None], Dm, -math.inf)  # (B, t, s, H)
+    m_t = torch.maximum(F_ + m0[:, None, :], Dm.amax(dim=2))  # (B, c, H)
+    w_inter = torch.exp(F_ + m0[:, None, :] - m_t)
+    h_inter = torch.einsum("bchk,bhkv->bchv", qc, C0) * w_inter[..., None]
+    n_inter = torch.einsum("bchk,bhk->bch", qc, n0) * w_inter
+    sc = (torch.einsum("bthd,bshd->btsh", qc, kc)
+          * torch.exp(Dm - m_t[:, :, None, :]))
+    h_intra = torch.einsum("btsh,bshd->bthd", sc, vc)
+    den = torch.maximum(torch.abs(n_inter + sc.sum(dim=2)), torch.exp(-m_t))
+    h = (h_inter + h_intra) / den[..., None]
+    # the state at the chunk's end
+    Fc, m_c = F_[:, -1], m_t[:, -1]
+    wC = torch.exp(Fc + m0 - m_c)                                # (B, H)
+    wk = torch.exp(Fc[:, None, :] - F_ + ic - m_c[:, None, :])   # (B, c, H)
+    C1 = wC[..., None, None] * C0 + torch.einsum(
+        "bshk,bshv->bhkv", kc * wk[..., None], vc)
+    n1 = wC[..., None] * n0 + torch.einsum("bsh,bshk->bhk", wk, kc)
+    return h, (C1, n1, m_c)
+
+
+def mlstm_fwd(p: dict, x, cfg):
+    """Stabilized chunkwise-parallel mLSTM prefill.  x: (B, S, d), S a
+    multiple of the chunk, min(cfg.attn_chunk, S).  Returns (out, the
+    decode state after the prompt): the last chunk's carry (C, n, m).
+
+    The reference's decode cache comes from its decode step run over the
+    prompt from m = 0; this carry starts from m = -1e30, as the forward
+    does.  (C, n) are held scaled by exp(-m), and the output q.C /
+    max(|q.n|, exp(-m)) is the same for every m, so the two caches are
+    one state: C_ref = C exp(m - m_ref), likewise n."""
+    B, S, d = x.shape
+    H = cfg.n_heads
+    hd = d // H
+    c = min(cfg.attn_chunk or 256, S)
+    if S % c:
+        raise ValueError(f"mLSTM prefill: {S} tokens are not a multiple of "
+                         f"the chunk {c}")
+    nc = S // c
+    q, k, v, i_pre, f_pre = _mlstm_heads(p, x, cfg)
+    qf, kf, vf = (t.float().reshape(B, nc, c, H, hd) for t in (q, k, v))
+    logf = F.logsigmoid(f_pre).reshape(B, nc, c, H)
+    ii = i_pre.reshape(B, nc, c, H)
+    mask = torch.tril(torch.ones((c, c), dtype=torch.bool, device=x.device))
+    state = (torch.zeros((B, H, hd, hd), dtype=torch.float32,
+                         device=x.device),
+             torch.zeros((B, H, hd), dtype=torch.float32, device=x.device),
+             torch.full((B, H), -1e30, dtype=torch.float32, device=x.device))
+    hs = []
+    for j in range(nc):
+        h, state = _mlstm_chunk(qf[:, j], kf[:, j], vf[:, j], logf[:, j],
+                                ii[:, j], *state, mask)
+        hs.append(h)
+    h = torch.stack(hs, dim=1).reshape(B, S, d)
+    o = torch.sigmoid((x @ p["w_o"]).float())
+    out = rmsnorm(h.to(x.dtype), p["ln_g"]) * o.to(x.dtype)
+    return out @ p["wo"], dict(zip(("C", "n", "m"), state))
+
+
+def mlstm_cache_shape(cfg, batch: int) -> dict:
+    H = cfg.n_heads
+    hd = cfg.d_model // H
+    return {"C": CacheSpec((batch, H, hd, hd), torch.float32),
+            "n": CacheSpec((batch, H, hd), torch.float32),
+            "m": CacheSpec((batch, H), torch.float32)}
+
+
+def mlstm_decode(p: dict, x, cache: dict, cfg):
+    """x: (B, 1, d), one token.  Returns (out, new state)."""
+    B, _, d = x.shape
+    q, k, v, i_pre, f_pre = _mlstm_heads(p, x, cfg)
+    q, k, v = (t[:, 0].float() for t in (q, k, v))
+    i_pre, f_pre = i_pre[:, 0], f_pre[:, 0]               # (B, H)
+    logf = F.logsigmoid(f_pre)
+    m_new = torch.maximum(logf + cache["m"], i_pre)
+    f_sc = torch.exp(logf + cache["m"] - m_new)[..., None]
+    i_sc = torch.exp(i_pre - m_new)[..., None]
+    C = (f_sc[..., None] * cache["C"]
+         + i_sc[..., None] * torch.einsum("bhk,bhv->bhkv", k, v))
+    n = f_sc * cache["n"] + i_sc * k
+    num = torch.einsum("bhk,bhkv->bhv", q, C)
+    den = torch.maximum(torch.abs(torch.einsum("bhk,bhk->bh", q, n)),
+                        torch.exp(-m_new))[..., None]
+    h = (num / den).reshape(B, 1, d).to(x.dtype)
+    o = torch.sigmoid((x @ p["w_o"]).float())
+    out = rmsnorm(h, p["ln_g"]) * o.to(x.dtype)
+    return out @ p["wo"], {"C": C, "n": n, "m": m_new}
+
+
+# ---------------------------------------------------------------------------
+# sLSTM (scalar-memory LSTM with exponential gating): strictly sequential
+# ---------------------------------------------------------------------------
+
+def slstm_specs(cfg) -> dict:
+    d = cfg.d_model
+    return {"w_z": ParamSpec((d, d)),
+            "w_i": ParamSpec((d, d), torch.float32),
+            "w_f": ParamSpec((d, d), torch.float32),
+            "w_o": ParamSpec((d, d)), "r_z": ParamSpec((d, d)),
+            "wo": ParamSpec((d, d))}
+
+
+def slstm_cache_shape(cfg, batch: int) -> dict:
+    return {k: CacheSpec((batch, cfg.d_model), torch.float32)
+            for k in ("c", "n", "m", "h")}
+
+
+def _slstm_gates(p, x):
+    """The pre-activations of every token at once: z, i, log f and
+    sigmoid(o), (B, S, d) f32."""
+    xf = x.float()
+    return ((x @ p["w_z"]).float(), xf @ p["w_i"],
+            F.logsigmoid(xf @ p["w_f"]), torch.sigmoid((x @ p["w_o"]).float()))
+
+
+def _slstm_step(zt, it, ft, so, rz, st: dict) -> dict:
+    """One token: zt/it/ft (B, d) f32 pre-activations, so = sigmoid(o),
+    rz the f32 recurrent weights; st the state before it."""
+    z = torch.tanh(zt + st["h"] @ rz)
+    fm = ft + st["m"]
+    m_new = torch.maximum(fm, it)
+    i_sc = torch.exp(it - m_new)
+    f_sc = torch.exp(fm - m_new)
+    c = f_sc * st["c"] + i_sc * z
+    n = f_sc * st["n"] + i_sc
+    h = so * c / torch.clamp_min(n, 1e-6)
+    return {"c": c, "n": n, "m": m_new, "h": h}
+
+
+def slstm_fwd(p: dict, x, cfg):
+    """Prefill, one step a token.  x: (B, S, d).  Returns (out, the
+    state after the last token)."""
+    B, S, d = x.shape
+    z, i, f, so = _slstm_gates(p, x)
+    rz = p["r_z"].float()
+    st = {k: torch.zeros((B, d), dtype=torch.float32, device=x.device)
+          for k in ("c", "n", "m", "h")}
+    st["m"].fill_(-1e30)
+    hs = []
+    for t in range(S):
+        st = _slstm_step(z[:, t], i[:, t], f[:, t], so[:, t], rz, st)
+        hs.append(st["h"])
+    return torch.stack(hs, dim=1).to(x.dtype) @ p["wo"], st
+
+
+def slstm_decode(p: dict, x, cache: dict, cfg):
+    """x: (B, 1, d), one token.  Returns (out, new state)."""
+    z, i, f, so = _slstm_gates(p, x)
+    st = _slstm_step(z[:, 0], i[:, 0], f[:, 0], so[:, 0], p["r_z"].float(),
+                     cache)
+    return st["h"][:, None].to(x.dtype) @ p["wo"], st

@@ -1,11 +1,12 @@
-"""The port's architecture registry serves the decoder-only configs and
-refuses the rest with the right reason.
+"""The port's architecture registry serves every config of the
+reference's.
 
 The five configs of the MLA/MoE slice (internlm2-20b and granite-20b,
 plain GQA at head width 128; minicpm3-4b, MLA; deepseek-v2-lite-16b,
-MLA + MoE; kimi-k2-1t-a32b, GQA + MoE) are registered and equal the
-reference's field for field.  The reference's other architectures need
-blocks the port lacks: xLSTM, the encoder-decoder, the frontends.
+MLA + MoE; kimi-k2-1t-a32b, GQA + MoE) and the last three
+(xlstm-1.3b, mLSTM / sLSTM; whisper-base, the encoder-decoder;
+phi-3-vision-4.2b, the vision frontend's stub) are registered and
+equal the reference's field for field.
 """
 import dataclasses
 
@@ -17,7 +18,7 @@ from repro.configs import base as jbase                     # noqa: E402
 from repro_torch.configs import base                        # noqa: E402
 
 NEW = ["internlm2-20b", "granite-20b", "minicpm3-4b", "deepseek-v2-lite-16b",
-       "kimi-k2-1t-a32b"]
+       "kimi-k2-1t-a32b", "xlstm-1.3b", "whisper-base", "phi-3-vision-4.2b"]
 
 
 @pytest.mark.parametrize("name", NEW)
@@ -36,20 +37,11 @@ def test_slice_configs_are_served_and_equal_the_reference(name):
                         "unroll_layers"}
 
 
-REASONS = {"xlstm-1.3b": "mLSTM and sLSTM", "whisper-base": "encoder-decoder"}
-
-
-@pytest.mark.parametrize("name", list(REASONS))
-def test_other_unported_configs_keep_their_reason(name):
-    with pytest.raises(NotImplementedError, match=f"{REASONS[name]}.*A16"):
-        base.get_config(name)
-
-
 def test_every_reference_config_is_served_or_refused():
     """The port registers or refuses each of the reference's configs,
-    and none is both."""
+    and none is both: all ten are served, none refused."""
     served = set(base.list_archs())
     refused = set(base.UNPORTED)
     assert not served & refused
     assert served | refused == set(jbase.list_archs())
-    assert len(served) == 7
+    assert len(served) == 10 and not refused

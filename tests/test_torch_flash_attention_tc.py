@@ -19,7 +19,8 @@ unchanged bf16 tolerance (5e-2), and to its f32 output by the card's
 criterion (error RMS at most 1 % of the output's RMS), which a dropped
 kv tile fails; causal / local / full masks at every width pair the
 served configs use (64, 256, 128 with GQA and MQA, 112, MLA's 192 / 128
-and 96 / 64), ragged Sq and Sk and Sq != Sk.  So the tests show that
+and 96 / 64, phi-3-vision's 96 / 96), ragged Sq and Sk and Sq != Sk
+(whisper's cross-attention shape among them).  So the tests show that
 the design's padding, roundings and tile walk can meet the card's
 check.  Inputs are drawn with numpy from a seed.  Beside them: the tile
 reach both kernels compute (`kv_tile_range`) against the mask itself,
@@ -100,15 +101,19 @@ def tc_emulation(q, k, v, *, kind, window, drop=None):
 # (B, Sq, Sk, H, Hkv, hd, hd_v): MQA at recurrentgemma's head width with
 # a ragged q tile, GQA 3 at smollm's; hd 128 with GQA 2 and, Sq > Sk,
 # MQA as granite's; kimi's hd 112 (a second box half zeros), Sq < Sk;
-# deepseek's MLA 192 / 128 and minicpm3's 96 / 64, H = Hkv.  Under the
-# window every query keeps an unmasked key (Sq - WINDOW < Sk).
+# deepseek's MLA 192 / 128 and minicpm3's 96 / 64, H = Hkv; phi-3-vision's
+# 96 / 96 on the (128, 128) instantiation; whisper's cross-attention
+# shape at hd 64, Sq > Sk with a ragged last kv tile.  Under the window
+# every query keeps an unmasked key (Sq - WINDOW < Sk).
 SHAPES = {"mqa_hd256": (1, 96, 96, 2, 1, 256, 256),
           "gqa3_hd64": (2, 160, 160, 6, 2, 64, 64),
           "gqa2_hd128": (1, 130, 130, 4, 2, 128, 128),
           "mqa_hd128_sq_gt_sk": (1, 150, 120, 6, 1, 128, 128),
           "gqa2_hd112_sq_lt_sk": (2, 100, 140, 4, 2, 112, 112),
           "mla_hd192_128": (1, 140, 110, 3, 3, 192, 128),
-          "mla_hd96_64": (2, 120, 160, 4, 4, 96, 64)}
+          "mla_hd96_64": (2, 120, 160, 4, 4, 96, 64),
+          "mha_hd96": (1, 130, 110, 4, 4, 96, 96),
+          "cross_hd64_sq_gt_sk": (1, 150, 115, 4, 4, 64, 64)}
 
 
 def _bf16_inputs(shape, seed):
@@ -224,20 +229,34 @@ def _attention_widths(cfg):
     return cfg.head_dim, cfg.head_dim
 
 
+def _has_attention(cfg) -> bool:
+    """Whether any block of the config attends (xlstm-1.3b's mLSTM and
+    sLSTM blocks do not: its hd 512 never reaches B5)."""
+    from repro_torch.models import lm
+    head, pat, n_rep, tail = lm.layer_layout(cfg)
+    return any(k in ("attn", "moe", "xattn") for k in head + pat + tail)
+
+
 def test_every_served_config_routes_to_tensor_cores():
     """Every config the port serves runs its bf16 B5 launches on the
-    tensor cores: no width falls back to the CUDA-core kernel."""
+    tensor cores: no width falls back to the CUDA-core kernel.  Ten
+    configs are served, nine of them with attention."""
     served = [n for n in list_archs() if n not in UNPORTED]
-    assert len(served) == 7, served
+    assert len(served) == 10, served
     widths = {}
     for name in served:
         cfg = get_config(name)
+        if not _has_attention(cfg):
+            assert name == "xlstm-1.3b"
+            continue
         hd, hd_v = _attention_widths(cfg)
         widths[name] = (hd, hd_v)
         assert cfg.dtype == torch.bfloat16, name
         assert fa.route(cfg.dtype, hd, hd_v) == "tc", (name, hd, hd_v)
+    assert len(widths) == 9
     assert set(widths.values()) == {(256, 256), (64, 64), (128, 128),
-                                    (112, 112), (192, 128), (96, 64)}
+                                    (112, 112), (192, 128), (96, 64),
+                                    (96, 96)}
 
 
 def test_tile_table_is_the_kernel_source():

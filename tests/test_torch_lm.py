@@ -1,6 +1,10 @@
 """The port's LM serving path against the JAX package.
 
-The seven decoder-only smoke configs the port serves:
+The spec-level tests (fields, parameter counts, the initializer's bits,
+the registry) cover all ten configs; the whole-model ones here, the
+seven decoder-only smoke configs (xlstm-1.3b's are in
+tests/test_torch_xlstm.py, whisper-base's and phi-3-vision-4.2b's in
+tests/test_torch_encdec.py):
 recurrentgemma-2b (RG-LRU + local attention, window 16), smollm-360m,
 internlm2-20b and granite-20b (causal GQA, granite MQA), minicpm3-4b
 (MLA with q-LoRA), deepseek-v2-lite-16b (MLA + MoE, a dense first
@@ -54,6 +58,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import get_config as ref_config  # noqa: E402
 from repro.configs import get_smoke as ref_smoke  # noqa: E402
+from repro.configs import list_archs as ref_list_archs  # noqa: E402
 from repro.launch import steps as ref_steps  # noqa: E402
 from repro.models import lm as ref_lm  # noqa: E402
 from repro.models import moe as ref_moe  # noqa: E402
@@ -67,6 +72,11 @@ from repro_torch.models.layers import tree_leaves, tree_map  # noqa: E402
 ARCHS = ["deepseek-v2-lite-16b", "granite-20b", "internlm2-20b",
          "kimi-k2-1t-a32b", "minicpm3-4b", "recurrentgemma-2b",
          "smollm-360m"]
+#: the configs whose whole-model comparisons are in
+#: tests/test_torch_xlstm.py and tests/test_torch_encdec.py; the
+#: spec-level tests here cover all ten
+ALL_ARCHS = sorted(ARCHS + ["phi-3-vision-4.2b", "whisper-base",
+                            "xlstm-1.3b"])
 MOE_ARCHS = ("deepseek-v2-lite-16b", "kimi-k2-1t-a32b")
 #: bf16 prefill logits, abs: the dense configs, and the MoE configs given
 #: the reference's routing
@@ -342,7 +352,7 @@ def test_serve_needs_a_card_by_default():
                         gen=2, verbose=False)
 
 
-@pytest.mark.parametrize("name", ARCHS)
+@pytest.mark.parametrize("name", ALL_ARCHS)
 def test_configs_match_reference_field_for_field(name):
     for ref, port in ((ref_config(name), get_config(name)),
                       (ref_smoke(name), get_smoke(name))):
@@ -355,37 +365,36 @@ def test_configs_match_reference_field_for_field(name):
                 assert got == want, (name, f.name)
 
 
-@pytest.mark.parametrize("name", ARCHS)
+@pytest.mark.parametrize("name", ALL_ARCHS)
 def test_param_count_matches_reference(name):
     assert get_config(name).param_count() == ref_config(name).param_count()
     assert get_smoke(name).param_count() == ref_smoke(name).param_count()
 
 
 def test_registry_serves_two_archs_and_names_the_rest():
-    """The registry serves the seven decoder-only configs; the rest of
-    the reference's raise, naming what they wait on (A16)."""
-    assert list_archs() == ARCHS
-    with pytest.raises(NotImplementedError, match="vision frontend.*A16"):
-        get_config("phi-3-vision-4.2b")
-    with pytest.raises(NotImplementedError, match="mLSTM and sLSTM.*A16"):
-        get_smoke("xlstm-1.3b")
-    with pytest.raises(NotImplementedError, match="encoder-decoder.*A16"):
-        get_config("whisper-base")
+    """The registry serves all ten of the reference's configs, each the
+    reference's own; an unknown name raises KeyError."""
+    assert list_archs() == ALL_ARCHS == sorted(ref_list_archs())
+    for name in ALL_ARCHS:
+        assert get_config(name).name == name
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 
 
 def test_unported_blocks_raise():
-    """What is still unported raises, citing A16: the xLSTM blocks, the
-    encoder-decoder, the frontends, learned positions and layernorm."""
-    for change in (dict(block_pattern=("mlstm",)),
-                   dict(block_pattern=("slstm", "attn")),
-                   dict(is_encoder_decoder=True), dict(frontend="vision"),
-                   dict(frontend="audio"), dict(learned_pos=True),
-                   dict(norm="layernorm")):
-        cfg = dataclasses.replace(get_smoke("smollm-360m"), **change)
-        with pytest.raises(NotImplementedError, match="A16"):
-            lm.param_specs(cfg)
+    """An unknown block kind raises ValueError, as in the reference;
+    every kind of the ten configs builds its specs and cache shapes."""
+    cfg = dataclasses.replace(get_smoke("smollm-360m"),
+                              block_pattern=("attn", "mamba"))
+    with pytest.raises(ValueError, match="unknown block kind 'mamba'"):
+        lm.param_specs(cfg)
+    with pytest.raises(ValueError, match="unknown block kind 'mamba'"):
+        lm.cache_shapes(cfg, 1, 8)
+    with pytest.raises(ValueError, match="unknown block kind 'mamba'"):
+        ref_lm.param_specs(dataclasses.replace(
+            ref_smoke("smollm-360m"), block_pattern=("attn", "mamba")))
+    for name in ALL_ARCHS:
+        lm.cache_shapes(get_smoke(name), 1, 8)
 
 
 def test_params_from_reference_keep_dtypes_and_unstack():
@@ -439,7 +448,7 @@ def _old_materialize(specs, gen):
     return tree_map(draw, specs)
 
 
-@pytest.mark.parametrize("name", ARCHS)
+@pytest.mark.parametrize("name", ALL_ARCHS)
 def test_initializer_draws_randn_times_std_bitwise(name):
     """`ParamSpec.initializer` scales its f32 draw in place; every leaf
     is still `(randn * std).to(dtype)` bit for bit."""
