@@ -1,14 +1,16 @@
 """Atomic, keep-N, async-write checkpoints of the port's trees.
 
-A tree is nested dicts, lists and tuples whose leaves are tensors, numpy
-arrays, numpy scalars or Python numbers (`None` is an empty subtree).
+A tree is nested dicts, lists, tuples and named tuples (the optimizer's
+`AdamWState` and `QMoment`) whose leaves are tensors, numpy arrays,
+numpy scalars or Python numbers (`None` is an empty subtree).
 The on-disk layout is the reference package's (`repro.checkpoint`), so
 a checkpoint written by either package restores in the other:
 
   * ``arrays.npz`` holds leaf i's raw bytes as the uint8 array ``a{i}``;
   * ``keys.json`` is the manifest ``[{"key", "dtype", "shape"}, ...]``,
-    in the reference's flatten order (dict keys sorted, sequences in
-    order), each key the path's parts joined by ``/``;
+    in the reference's flatten order (dict keys sorted, sequences and
+    named tuples in order), each key the path's parts joined by ``/``, a
+    named tuple's field as ``.<name>`` (how JAX prints its path entry);
   * ``meta.json`` holds the caller's metadata.
 
 The device is a property of the run, not of the data: leaves are saved
@@ -35,34 +37,13 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.models.layers import tree_items, tree_map_path
+
 __all__ = ["CheckpointManager", "restore_tree", "save_tree"]
 
 #: the one dtype of the port's trees that numpy cannot name (without
 #: ml_dtypes); it is stored and read as its 16-bit pattern
 _BF16 = "bfloat16"
-
-
-def _items(tree, prefix: tuple = ()):
-    """(path, leaf) pairs in the reference's flatten order."""
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _items(tree[k], prefix + (k,))
-    elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            yield from _items(v, prefix + (i,))
-    elif tree is not None:
-        yield prefix, tree
-
-
-def _map(fn, tree, prefix: tuple = ()):
-    """`tree` with each leaf replaced by fn(path, leaf); containers and
-    their key order kept."""
-    if isinstance(tree, dict):
-        return {k: _map(fn, v, prefix + (k,)) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_map(fn, v, prefix + (i,))
-                          for i, v in enumerate(tree))
-    return None if tree is None else fn(prefix, tree)
 
 
 def _key(path: tuple) -> str:
@@ -100,7 +81,7 @@ def save_tree(path: pathlib.Path, tree, *, meta: Optional[dict] = None
     old = path.with_name(f".old.{path.name}")
     shutil.rmtree(tmp, ignore_errors=True)
     tmp.mkdir(parents=True, exist_ok=True)
-    flat = [(_key(p), *_host(leaf)) for p, leaf in _items(tree)]
+    flat = [(_key(p), *_host(leaf)) for p, leaf in tree_items(tree)]
     manifest = [{"key": k, "dtype": name, "shape": list(arr.shape)}
                 for k, arr, name in flat]
     np.savez(tmp / "arrays.npz",
@@ -184,7 +165,7 @@ def restore_tree(path: pathlib.Path, target, *, device=None
                              f"{tuple(t.shape)} vs target {_shape(like)}")
         return _place(t.to(_torch_dtype(like)), like, device)
 
-    return _map(leaf, target), meta
+    return tree_map_path(leaf, target), meta
 
 
 class CheckpointManager:
@@ -218,7 +199,7 @@ class CheckpointManager:
              ) -> None:
         self.wait()
         meta = dict(meta or {}, step=step)
-        snap = _map(_snapshot, tree)     # on the caller's thread
+        snap = tree_map_path(_snapshot, tree)     # on the caller's thread
 
         def _write():
             save_tree(self._step_dir(step), snap, meta=meta)

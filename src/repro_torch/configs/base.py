@@ -1,11 +1,12 @@
 """ArchConfig: one dataclass describes every architecture.
 
 A copy of the reference's `configs/base.py` with `dtype` a
-`torch.dtype`, without the reference's mesh and optimizer fields
-(`zero`, `shard_resid`, `layout`, `opt_dtype`: the port serves on one
-card).  Every one of the reference's ten architectures is registered:
-GQA / local attention, MLA, MoE, RG-LRU and xLSTM blocks, the
-encoder-decoder and the vision frontend's stub.
+`torch.dtype`, without the reference's mesh fields (`fsdp`, `zero`,
+`shard_resid`, `layout`: the port trains and serves on one card) and
+its cost-counting switch `unroll_layers`; `opt_dtype`, the AdamW
+moments' dtype, is kept.  Every one of the reference's ten
+architectures is registered: GQA / local attention, MLA, MoE, RG-LRU
+and xLSTM blocks, the encoder-decoder and the vision frontend's stub.
 """
 from __future__ import annotations
 
@@ -73,7 +74,8 @@ class ArchConfig:
     learned_pos: bool = False
     max_seq: int = 8192
     dtype: torch.dtype = torch.bfloat16
-    remat: bool = True
+    remat: bool = True           # train: checkpoint each superblock
+    opt_dtype: str = "f32"       # AdamW moment dtype: f32 | bf16 | int8
     attn_chunk: int = 512        # KV chunk of the blocked attention
 
     def __post_init__(self):

@@ -119,6 +119,32 @@ KERNEL_CONTRACTS: dict[str, dict] = {
             "repro_torch.kernels.flash_attention:smem_bytes_tc",
         "replaces": "src/repro/kernels/flash_attention.py:93",
     },
+    # LM training: B5's backward (dq with the rows' lse and D, then dk and
+    # dv a kv tile and kv head a block, the group's heads in a fixed
+    # order; f32 math on the CUDA cores, f32 or bf16 inputs); its Q, dO,
+    # K, V and dS tiles are placed in dynamic shared memory by
+    # `bwd_smem_bytes`, which the launcher requires.
+    "flash_attention.flash_attention_bwd": {
+        "source": "csrc/flash_attention_bwd.cu",
+        "entry": "flash_attention_bwd_launch",
+        "nvcc_extra": (),
+        "misfit": None,
+        "smem_estimate":
+            "repro_torch.kernels.flash_attention:bwd_smem_bytes",
+        "replaces": "src/repro/kernels/flash_attention.py:93",
+    },
+    # LM training: B6's backward, one thread per (batch row, channel),
+    # h recomputed in f32 then walked back; -fmad=false as the forward, so
+    # each operation rounds as the plain version's.  It uses no shared
+    # memory (a static size of 0).
+    "rglru.rglru_bwd": {
+        "source": "csrc/rglru_bwd.cu",
+        "entry": "rglru_bwd_launch",
+        "nvcc_extra": ("-fmad=false",),
+        "misfit": None,
+        "smem_estimate": None,
+        "replaces": "src/repro/kernels/rglru.py:67",
+    },
     # RG-LRU recurrence, one thread per (batch row, channel); -fmad=false
     # keeps each multiply and add rounding as the plain version's
     # separate elementwise operations do.  Its a and b rings are static

@@ -22,6 +22,15 @@ caller in the port), and keys past Sk in the last kv tile are masked by
 the kernels' own ragged edge.  On a CPU tensor the same function runs
 `flash_attention_plain`, the plain PyTorch version (the masked softmax
 written out in f32); on a CUDA tensor it launches a kernel or raises.
+
+The backward (`flash_attention_bwd`) is `csrc/flash_attention_bwd.cu`:
+two launches on the CUDA cores (dq with each row's log-sum-exp and
+rowsum(dO o), then dk and dv a kv tile and kv head a block), f32 math
+for f32 or bf16 inputs, deterministic (no atomics).  Its plain version
+is `flash_attention_bwd_plain`.  `FlashAttentionFn` is the
+differentiable form, which `ops.flash_attention` always runs: the
+forward route above, and the backward kernel (the plain version on CPU
+tensors).  Where no grad is recorded it saves nothing.
 """
 from __future__ import annotations
 
@@ -51,11 +60,17 @@ TC_HEAD_DIMS = {(64, 64): (4, 4, True), (128, 64): (4, 4, True),
 TC_WG_ROWS = TC_BK = TC_COLS = 64
 LOG2E = 1.4426950408889634
 
+#: the backward kernel's q-tile rows and kv-tile keys
+#: (csrc/flash_attention_bwd.cu)
+BWD_BQ, BWD_BK = 64, 32
+
 #: launches of either CUDA kernel (the plain version does not count),
 #: and of each: the CUDA-core kernel and the bf16 tensor-core kernel
 launches = 0
 core_launches = 0
 tc_launches = 0
+#: calls of the backward kernel (each two launches: dq, then dk and dv)
+bwd_launches = 0
 
 
 def tc_widths(hd: int, hd_v: int) -> tuple[int, int]:
@@ -99,6 +114,20 @@ def kv_tile_range(q_start: int, rows: int, Sq: int, Sk: int, *, kind: str,
     return begin, max(begin, end)
 
 
+def bwd_q_tile_range(k_start: int, Sq: int, Sk: int, *, kind: str,
+                     window: int) -> tuple[int, int]:
+    """[begin, end) of the q tiles of BWD_BQ rows whose mask reaches keys
+    [k_start, k_start + BWD_BK): the tiles the backward kernel's second
+    launch walks for one kv tile (`q_tiles` in
+    csrc/flash_attention_bwd.cu)."""
+    end = -(-Sq // BWD_BQ)
+    begin = 0 if kind == "full" else k_start // BWD_BQ
+    if kind == "local":
+        k_last = min(k_start + BWD_BK, Sk) - 1
+        end = min(end, min(Sq - 1, k_last + window - 1) // BWD_BQ + 1)
+    return begin, max(begin, end)
+
+
 def smem_bytes(hd: int, hd_v: int) -> int:
     """Dynamic shared memory of one CUDA-core block, f32 whatever the
     input type: the Q tile, the transposed K tile, the V tile and the
@@ -123,6 +152,15 @@ def smem_bytes_tc(hd: int, hd_v: int) -> int:
     return 2 * (bq * hq + stages * bk * (hq + hv)) + 1024 + 128
 
 
+def bwd_smem_bytes(hd: int, hd_v: int) -> int:
+    """Dynamic shared memory of one block of either backward launch, f32
+    whatever the input type: the Q and dO tiles, the K and V tiles, the
+    P / dS tile, each with the kernel's +1 pad, and the q tile's lse and
+    D."""
+    return 4 * (BWD_BQ * (hd + 1) + BWD_BQ * (hd_v + 1) + BWD_BK * (hd + 1)
+                + BWD_BK * (hd_v + 1) + BWD_BQ * (BWD_BK + 1) + 2 * BWD_BQ)
+
+
 def _fn():
     fn = build.load("flash_attention").flash_attention_launch
     p, i = ctypes.c_void_p, ctypes.c_int
@@ -137,6 +175,14 @@ def _fn_tc():
     p, i = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, ctypes.c_float,
                    p, i, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _fn_bwd():
+    fn = build.load("flash_attention_bwd").flash_attention_bwd_launch
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p] * 10 + [i] * 9 + [ctypes.c_float, i, i, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -283,3 +329,110 @@ def flash_attention_kernel(q, k, v, *, kind: str = "causal", window: int = 0):
     if route(q.dtype, hd, hd_v) == "tc":
         return _launch_tc(q, k, v, kind, window)
     return _launch_core(q, k, v, kind, window)
+
+
+def flash_attention_bwd_plain(q, k, v, o, do, *, kind: str = "causal",
+                              window: int = 0):
+    """The plain PyTorch version of `flash_attention_bwd`, same contract:
+    the masked scores in f32, P from their log-sum-exp, D = rowsum(do o),
+    then dv = P^T do, dS = P (do v^T - D), dq = scale dS k, dk = scale
+    dS^T q.  Returns (dq, dk, dv) in q's, k's and v's dtypes."""
+    B, Sq, H, hd = q.shape
+    Sk, Hkv, hd_v = k.shape[1], k.shape[2], v.shape[-1]
+    G = H // Hkv
+    scale = hd ** -0.5
+    qg = q.float().reshape(B, Sq, Hkv, G, hd)
+    kf, vf = k.float(), v.float()
+    dog = do.float().reshape(B, Sq, Hkv, G, hd_v)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, kf) * scale
+    ok = mask(Sq, Sk, kind=kind, window=window, device=q.device)
+    s = s.masked_fill(~ok, NEG_INF)
+    lse = torch.logsumexp(s, dim=-1, keepdim=True)
+    p = torch.exp(s - lse).masked_fill(~ok, 0.0)
+    D = (dog * o.float().reshape(B, Sq, Hkv, G, hd_v)).sum(-1)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dog, vf)
+    ds = p * (dp - D.permute(0, 2, 3, 1)[..., None])
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, kf) * scale
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qg) * scale
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dog)
+    return (dq.reshape(B, Sq, H, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def flash_attention_bwd(q, k, v, o, do, *, kind: str = "causal",
+                        window: int = 0):
+    """dq, dk, dv of `flash_attention_kernel`'s o = attention(q, k, v)
+    given do = dL/do (o and do (B, Sq, H, hd_v) in q's dtype).  CPU
+    tensors run `flash_attention_bwd_plain`; CUDA tensors launch
+    `csrc/flash_attention_bwd.cu` (contiguous copies of what is not, as
+    MLA's v, a slice of its kv) or raise."""
+    global bwd_launches
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, do, kind=kind,
+                                         window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: unsupported device "
+                         f"{q.device}")
+    B, Sq, H, hd = q.shape
+    Sk, Hkv, hd_v = k.shape[1], k.shape[2], v.shape[-1]
+    if kind not in KINDS:
+        raise ValueError(f"unknown attention kind {kind!r}")
+    if q.dtype not in DTYPE_CODES:
+        raise ValueError(f"flash_attention_bwd: dtype {q.dtype} not "
+                         f"supported (f32 or bf16)")
+    if not (0 < hd <= MAX_HEAD_DIM and 0 < hd_v <= MAX_HEAD_DIM):
+        raise ValueError(f"flash_attention_bwd: head widths hd={hd}, "
+                         f"hd_v={hd_v}; the kernel takes <= {MAX_HEAD_DIM}")
+    if (tuple(k.shape) != (B, Sk, Hkv, hd) or tuple(v.shape[:3])
+            != (B, Sk, Hkv) or Hkv <= 0 or H % Hkv or Sk <= 0):
+        raise ValueError(f"flash_attention_bwd: shapes q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)} do not "
+                         f"agree")
+    for name, t in (("k", k), ("v", v), ("o", o), ("do", do)):
+        if t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"flash_attention_bwd: {name} is {t.dtype} on "
+                             f"{t.device}, q {q.dtype} on {q.device}")
+    if tuple(o.shape) != (B, Sq, H, hd_v) or o.shape != do.shape:
+        raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} and do "
+                         f"{tuple(do.shape)} must be {(B, Sq, H, hd_v)}")
+    smem = bwd_smem_bytes(hd, hd_v)
+    if smem > SMEM_OPTIN_BYTES:
+        raise ValueError(f"flash_attention_bwd: {smem} bytes of shared "
+                         f"memory exceed the {SMEM_OPTIN_BYTES}-byte opt-in")
+    q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    dd = torch.empty_like(lse)
+    err = _fn_bwd()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                    do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                    dv.data_ptr(), lse.data_ptr(), dd.data_ptr(), B, Sq, Sk,
+                    H, Hkv, hd, hd_v, KINDS[kind], int(window), hd ** -0.5,
+                    DTYPE_CODES[q.dtype], smem,
+                    torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"flash_attention backward kernel launch failed: CUDA error "
+            f"{err} (B={B}, Sq={Sq}, Sk={Sk}, H={H}, Hkv={Hkv}, hd={hd}, "
+            f"hd_v={hd_v}, {smem} bytes of shared memory)")
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """B5 with its backward: the forward route of `flash_attention_kernel`
+    (tensor cores or CUDA cores, unchanged), and `flash_attention_bwd` on
+    the saved q, k, v and o."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kind: str, window: int):
+        o = flash_attention_kernel(q, k, v, kind=kind, window=window)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.kind, ctx.window = kind, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do, kind=ctx.kind,
+                                         window=ctx.window)
+        return dq, dk, dv, None, None

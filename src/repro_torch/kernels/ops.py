@@ -479,12 +479,15 @@ def rglru_scan(x, a_log, gate_a, gate_x, h0):
     a_log: (D,).  Returns (h in x's dtype, the final state in f32 with
     h0's shape).  The reference's wrapper returns h only; the final
     state is its kernel's second output, which seeds the decode cache.
-    No padding or blocking of T: the CUDA kernel walks any T and D."""
+    No padding or blocking of T: the CUDA kernel walks any T and D.
+    Differentiable through `rglru.RGLRUFn`: the backward is B6's backward
+    kernel (`rglru.rglru_bwd`).  Where no grad is recorded (serving's
+    `torch.inference_mode`) the Function saves nothing."""
     if x.dim() == 2:
-        h, h_last = _rglru.rglru_kernel(x[None], a_log, gate_a[None],
-                                        gate_x[None], h0.reshape(1, -1))
+        h, h_last = rglru_scan(x[None], a_log, gate_a[None], gate_x[None],
+                               h0.reshape(1, -1))
         return h[0], h_last[0]
-    return _rglru.rglru_kernel(x, a_log, gate_a, gate_x, h0)
+    return _rglru.RGLRUFn.apply(x, a_log, gate_a, gate_x, h0)
 
 
 def flash_attention(q, k, v, *, kind: str = "causal", window: int = 0):
@@ -495,5 +498,9 @@ def flash_attention(q, k, v, *, kind: str = "causal", window: int = 0):
     reference's wrapper nothing is padded: the CUDA kernels mask their
     own ragged edge (f32: any hd, hd_v <= 256; bf16 the same, on the
     tensor cores at every width pair of `flash_attention.TC_HEAD_DIMS`,
-    whose padding to 64 columns is done on chip)."""
-    return _fa.flash_attention_kernel(q, k, v, kind=kind, window=window)
+    whose padding to 64 columns is done on chip).  Differentiable through
+    `flash_attention.FlashAttentionFn`: the backward is B5's backward
+    kernel (`flash_attention.flash_attention_bwd`).  Where no grad is
+    recorded (serving's `torch.inference_mode`) the Function saves
+    nothing."""
+    return _fa.FlashAttentionFn.apply(q, k, v, kind, int(window))

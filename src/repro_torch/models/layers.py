@@ -42,6 +42,50 @@ def tree_leaves(tree) -> list:
     return out
 
 
+def _fields(tree):
+    """A named tuple's field names, else None."""
+    return getattr(tree, "_fields", None) if isinstance(tree, tuple) \
+        else None
+
+
+def tree_items(tree, path: tuple = ()):
+    """(path, leaf) pairs in the reference's flatten order: dict keys
+    sorted, lists and tuples in order, a named tuple's fields in order
+    with the path entry ``.<name>`` (how JAX prints it); `None` is an
+    empty subtree."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_items(tree[k], path + (k,))
+    elif _fields(tree) is not None:
+        for f, v in zip(tree._fields, tree):
+            yield from tree_items(v, path + (f".{f}",))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from tree_items(v, path + (i,))
+    elif tree is not None:
+        yield path, tree
+
+
+def tree_map_path(fn, tree, *rest, path: tuple = ()):
+    """`tree` with each leaf replaced by fn(path, leaf, *whatever `rest`
+    holds at the same place, a subtree there passed whole); containers,
+    their types and key order kept, paths as `tree_items` gives them."""
+    if isinstance(tree, dict):
+        return {k: tree_map_path(fn, v, *(r[k] for r in rest),
+                                 path=path + (k,))
+                for k, v in tree.items()}
+    if _fields(tree) is not None:
+        return type(tree)(*(tree_map_path(fn, v, *(r[i] for r in rest),
+                                          path=path + (f".{f}",))
+                            for i, (f, v) in enumerate(zip(tree._fields,
+                                                           tree))))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_path(fn, v, *(r[i] for r in rest),
+                                        path=path + (i,))
+                          for i, v in enumerate(tree))
+    return None if tree is None else fn(path, tree, *rest)
+
+
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     """Shape, dtype and initializer of one parameter (no sharding: the

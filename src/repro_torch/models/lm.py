@@ -14,16 +14,28 @@ configs lead with `first_dense_layers` unrolled `attn` blocks
 (`cfg.norm`), positions RoPE or learned (`cfg.learned_pos`); a vision
 config's patch embeddings go ahead of the tokens (`extra_embeds`).
 
-Modes (the reference's `train` mode waits with the train step):
+Modes:
+  train   — full-sequence forward for the train step: prefill's
+            arithmetic with no cache built or returned; with `cfg.remat`
+            each repeated superblock runs under
+            `torch.utils.checkpoint.checkpoint` (its activations are
+            recomputed in the backward), as the reference wraps its
+            `superblock` in `jax.checkpoint`; head, tail and encoder
+            blocks are not rematerialised there either
   prefill — full-sequence forward that also fills the KV/state caches
   decode  — one token against the caches (written in place for
             attention: see `attention.gqa_decode`, `attention.mla_decode`)
+
+`lm_loss` is the reference's cross-entropy: f32, logsumexp over the
+padded vocab, an optional mask.
 """
 from __future__ import annotations
 
 from typing import Any
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn
 from . import moe as moe_lib
@@ -118,7 +130,9 @@ def _attn_kind(cfg, kind: str) -> str:
 def apply_block(p: dict, x, cfg, kind: str, *, positions=None,
                 mode: str = "prefill", cache=None, pos=None, enc_out=None):
     """Returns (x_new, new_cache); an encoder block (`enc_attn`) keeps no
-    cache and returns None."""
+    cache and returns None, and in train mode no attention block builds
+    one (the recurrent blocks' final states come from their one scan and
+    are dropped by the caller)."""
     h = _norm(p["ln1"], x)
     if kind in ("mlstm", "slstm"):
         if mode == "decode":
@@ -143,7 +157,7 @@ def apply_block(p: dict, x, cfg, kind: str, *, positions=None,
             a = (attn.mla_fwd(p["attn"], h, cfg, positions=positions) if mla
                  else attn.gqa_fwd(p["attn"], h, cfg, positions=positions,
                                    kind=akind, use_rope=cfg.use_rope))
-            new_cache = (None if kind == "enc_attn"
+            new_cache = (None if kind == "enc_attn" or mode == "train"
                          else _prefill_cache(p["attn"], h, cfg, positions))
         x = x + a
         if kind == "xattn":
@@ -186,6 +200,8 @@ def _cross_attention(p: dict, hx, cfg, *, positions, mode: str, cache,
         return a, {"cross_k": ck, "cross_v": cv}
     a = attn.gqa_fwd(px, hx, cfg, positions=positions, kind="full",
                      kv_x=enc_out, use_rope=False)
+    if mode == "train":
+        return a, {}
     Se = enc_out.shape[1]
     ck = (enc_out @ px["wk"]).reshape(B, Se, Hkv, hd).to(torch.bfloat16)
     cv = (enc_out @ px["wv"]).reshape(B, Se, Hkv, hd).to(torch.bfloat16)
@@ -249,7 +265,11 @@ def cache_shapes(cfg, batch: int, max_seq: int) -> dict:
 
 
 def _embed(params, tokens, cfg, *, pos_offset: int = 0):
-    x = params["embed"][tokens]
+    # F.embedding, the same gather as indexing: its backward on the card
+    # sorts the tokens and sums each row's gradients in a fixed order, so
+    # a train step is deterministic without the deterministic-algorithms
+    # mode (indexing's backward is an accumulating index_put_)
+    x = F.embedding(tokens, params["embed"])
     if cfg.learned_pos:
         S = tokens.shape[1]
         if pos_offset + S > cfg.max_seq:
@@ -282,41 +302,63 @@ def forward(params, tokens, cfg, *, mode: str = "prefill", cache=None,
     an encoder-decoder's prefill attends to (its decode reads the cached
     cross K/V).  `extra_embeds`: (B, P, d) embeddings put ahead of the
     tokens (a vision config's patches), positions then running over
-    P + S.  Returns (logits (B, P + S, padded_vocab), caches).  The
-    reference's activation sharding constraints are no-ops without a
-    mesh; on one card there is none, so they are left out."""
-    if mode not in ("prefill", "decode"):
+    P + S.  Returns (logits (B, P + S, padded_vocab), caches), the
+    caches None in train mode.  The reference's activation sharding
+    constraints are no-ops without a mesh; on one card there is none, so
+    they are left out."""
+    if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
     head, pat, n_rep, tail = layer_layout(cfg)
     x = _embed(params, tokens, cfg, pos_offset=pos if mode == "decode" else 0)
     if extra_embeds is not None:
         x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
     S = x.shape[1]
-    positions = (torch.arange(S, device=x.device) if mode == "prefill"
+    positions = (torch.arange(S, device=x.device) if mode != "decode"
                  else None)
     kw = dict(positions=positions, mode=mode, pos=pos, enc_out=enc_out)
 
-    def run(kinds, blocks, caches):
-        nonlocal x
+    def run(kinds, blocks, caches, x):
         out = []
         for i, (kind, bp) in enumerate(zip(kinds, blocks)):
             x, c = apply_block(bp, x, cfg, kind,
                                cache=caches[i] if caches else None, **kw)
             out.append(c)
-        return out
+        return x, out
 
-    new_head = run(head, params["head_blocks"],
-                   cache["head"] if cache is not None else None)
+    def superblock(blocks, x):         # train mode under remat
+        return run(pat, blocks, None, x)[0]
+
+    x, new_head = run(head, params["head_blocks"],
+                      cache["head"] if cache is not None else None, x)
     new_blocks = []
+    names = [str(i) for i in range(len(pat))]
     for r in range(n_rep):
-        names = [str(i) for i in range(len(pat))]
+        blocks = [params["blocks"][r][n] for n in names]
+        if mode == "train" and cfg.remat:
+            x = checkpoint(superblock, blocks, x, use_reentrant=False)
+            continue
         c_in = ([cache["blocks"][r][n] for n in names]
                 if cache is not None else None)
-        c_out = run(pat, [params["blocks"][r][n] for n in names], c_in)
+        x, c_out = run(pat, blocks, c_in, x)
         new_blocks.append(dict(zip(names, c_out)))
-    new_tail = run(tail, params["tail_blocks"],
-                   cache["tail"] if cache is not None else None)
+    x, new_tail = run(tail, params["tail_blocks"],
+                      cache["tail"] if cache is not None else None, x)
 
     x = _norm(params["final_norm"], x)
     logits = x @ params["lm_head"].to(cfg.dtype)
+    if mode == "train":
+        return logits, None
     return logits, {"head": new_head, "blocks": new_blocks, "tail": new_tail}
+
+
+def lm_loss(logits, labels, mask=None):
+    """Cross-entropy in f32: logits (B, S, V), labels (B, S) integer, mask
+    (B, S) optional (the masked mean, over at least 1)."""
+    lf = logits.float()
+    logz = torch.logsumexp(lf, dim=-1)
+    ll = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    nll = logz - ll
+    if mask is not None:
+        mask = mask.to(nll.dtype)
+        return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    return nll.mean()

@@ -30,10 +30,11 @@ def test_slice_configs_are_served_and_equal_the_reference(name):
             if f.name != "dtype":
                 assert getattr(port, f.name) == getattr(ref, f.name), f.name
         assert port.param_count() == ref.param_count()
-    # what the port leaves out is the reference's mesh and optimizer
+    # what the port leaves out is the reference's mesh (it keeps the
+    # optimizer's moment dtype, `opt_dtype`, for its train step)
     ref_only = ({f.name for f in dataclasses.fields(jbase.ArchConfig)}
                 - {f.name for f in dataclasses.fields(base.ArchConfig)})
-    assert ref_only == {"fsdp", "zero", "opt_dtype", "shard_resid", "layout",
+    assert ref_only == {"fsdp", "zero", "shard_resid", "layout",
                         "unroll_layers"}
 
 
