@@ -26,7 +26,9 @@ topologies (1 and 4 cards; 1, 2 and 4 model lanes) x the planner's
 candidate geometries, and the detected card's topology when given one;
 then the TP step's model alone at its edges (`TP_STEP_EDGES`: every
 bucket width up to the largest, at d_loc edges), since a plan names only
-the buckets the planner tries.
+the buckets the planner tries; then the LM kernels' models at every
+width pair their routes send them (`lm_kernel_widths`), since no plan
+names those.
 """
 from __future__ import annotations
 
@@ -49,6 +51,12 @@ _DENSE = "sdca_bucket.sdca_bucket_kernel"
 _TP_STEP = "sdca_bucket.sdca_bucket_tp_step"
 _SPARSE = "sdca_sparse_bucket.sdca_sparse_bucket_kernel"
 _SHARDED = "sdca_sparse_bucket.sdca_sparse_sharded_bucket"
+#: the LM kernels whose shared memory depends on the head widths
+_ATTENTION = ("flash_attention.flash_attention_kernel",
+              "flash_attention.flash_attention_tc",
+              "flash_attention.flash_attention_bwd",
+              "flash_attention.flash_attention_bwd_tc")
+_RGLRU_BWD = "rglru.rglru_bwd"
 
 
 def _model(key: str):
@@ -92,6 +100,40 @@ def audit_tp_step(B: int, d_loc: int) -> list[Finding]:
                     f"(B={B}, d_loc={d_loc}) {msg}",
                     where="src/repro_torch/kernels/sdca_bucket.py:1",
                     case=f"tp-step/B={B}/d_loc={d_loc}") for msg in bad]
+
+
+def lm_kernel_widths(key: str) -> list[tuple[int, int]]:
+    """The (hd, hd_v) pairs contract `key`'s route sends it: the
+    tensor-core kernels their instantiations' padded pairs, the CUDA-core
+    ones every pair of multiples of 8 up to their largest width."""
+    from repro_torch.kernels import flash_attention as fa
+    if key.endswith("_bwd_tc"):
+        return sorted(fa.BWD_TC_PAIRS)
+    if key.endswith("_tc"):
+        return sorted(fa.TC_HEAD_DIMS)
+    widths = range(8, fa.MAX_HEAD_DIM + 1, 8)
+    return [(a, b) for a in widths for b in widths]
+
+
+def audit_lm_kernels() -> tuple[list[Finding], int]:
+    """SMEM-PLAN-BUDGET for the LM kernels: each attention kernel's model
+    at every width pair of `lm_kernel_widths`, and B6's backward ring,
+    against the opt-in.  -> (findings, models evaluated)."""
+    from repro_torch.kernels.contracts import SMEM_OPTIN_BYTES
+    found, n = [], 0
+    cases = [(key, (hd, hd_v)) for key in _ATTENTION
+             for hd, hd_v in lm_kernel_widths(key)] + [(_RGLRU_BWD, ())]
+    for key, args in cases:
+        placed = _model(key)(*args)
+        n += 1
+        if placed > SMEM_OPTIN_BYTES:
+            found.append(Finding(
+                rules.SMEM_PLAN_BUDGET,
+                f"{key}{args} places {placed} B of shared memory a block; "
+                f"the opt-in is {SMEM_OPTIN_BYTES} B",
+                where="src/repro_torch/kernels/contracts.py:1",
+                case=f"lm/{key}/{args}"))
+    return found, n
 
 
 def _round_up(x: int, m: int) -> int:
@@ -199,9 +241,12 @@ def run_budget_audit(log=None, *, detected=None) -> tuple[list[Finding], int]:
     edges = tp_step_edges()
     for B, d_loc in edges:
         found += audit_tp_step(B, d_loc)
+    lm_found, n_lm = audit_lm_kernels()
+    found += lm_found
     if log is not None:
         log(f"  budget: {n_plans} candidate plans swept over "
             f"{len(topos)} topologies, the TP step at {len(edges)} "
-            f"(B, d_loc) edges, {len(found)} finding(s)")
+            f"(B, d_loc) edges, the LM kernels at {n_lm} widths, "
+            f"{len(found)} finding(s)")
     return found, n_plans
 

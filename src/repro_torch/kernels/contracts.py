@@ -133,16 +133,35 @@ KERNEL_CONTRACTS: dict[str, dict] = {
             "repro_torch.kernels.flash_attention:bwd_smem_bytes",
         "replaces": "src/repro/kernels/flash_attention.py:93",
     },
-    # LM training: B6's backward, one thread per (batch row, channel),
-    # h recomputed in f32 then walked back; -fmad=false as the forward, so
-    # each operation rounds as the plain version's.  It uses no shared
-    # memory (a static size of 0).
+    # LM training, bf16 at the padded width pairs (64, 64) and (256, 256):
+    # B5's backward on the bf16 tensor cores (wgmma, as the forward's
+    # kernel, which gives it each row's lse): dq a q tile a block, then dk
+    # and dv a kv tile a block in the transposed frame, the heads of a
+    # GQA group split over blocks and summed in order where the kv tiles
+    # alone are too few; no atomics.  Its fixed pair of tiles, the ring of
+    # the other pair and their lse and D are placed by
+    # `bwd_tc_smem_bytes`, which the launcher requires.
+    "flash_attention.flash_attention_bwd_tc": {
+        "source": "csrc/flash_attention_bwd_tc.cu",
+        "entry": "flash_attention_bwd_tc_launch",
+        "nvcc_extra": (),
+        "misfit": None,
+        "smem_estimate":
+            "repro_torch.kernels.flash_attention:bwd_tc_smem_bytes",
+        "replaces": "src/repro/kernels/flash_attention.py:93",
+    },
+    # LM training: B6's backward in four launches: the gates of every
+    # step in parallel, the two chains (one warp of channels a block,
+    # their operands staged by cp.async through a ring in dynamic shared
+    # memory, placed by `bwd_smem_bytes`), the gradients in parallel, and
+    # d a_log summed over t from the end on the same ring; -fmad=false
+    # as the forward, so each operation rounds as the plain version's.
     "rglru.rglru_bwd": {
         "source": "csrc/rglru_bwd.cu",
         "entry": "rglru_bwd_launch",
         "nvcc_extra": ("-fmad=false",),
         "misfit": None,
-        "smem_estimate": None,
+        "smem_estimate": "repro_torch.kernels.rglru:bwd_smem_bytes",
         "replaces": "src/repro/kernels/rglru.py:67",
     },
     # RG-LRU recurrence, one thread per (batch row, channel); -fmad=false

@@ -18,9 +18,12 @@
 // Layout: q (B, Sq, H, hd), k (B, Sk, Hkv, hd), v (B, Sk, Hkv, hd_v),
 // bf16, each read through a tensor map with its own strides (MLA's v is
 // a slice of its kv tensor, read in place); o (B, Sq, H, hd_v),
-// contiguous.  The kernel is built at padded widths (HQ, HV), each a
-// multiple of 64 (`Tile` below: (64, 64), (128, 64), (128, 128),
-// (192, 128), (256, 256)), and takes the real hd and hd_v at run time.
+// contiguous; where the caller records a gradient, each row's f32
+// log-sum-exp too (B, H, Sq), which flash_attention_bwd_tc.cu reads
+// (serving passes no buffer, and nothing else changes).  The kernel is
+// built at padded widths (HQ, HV), each a multiple of 64 (`Tile` below:
+// (64, 64), (128, 64), (128, 128), (192, 128), (256, 256)), and takes
+// the real hd and hd_v at run time.
 // The tensor maps' inner dimension is the real width, so a 64-column
 // box that reaches past it reads zeros, as rows past Sq or Sk do; zero
 // columns add nothing to q k^T or to P V, and only the columns below
@@ -74,222 +77,13 @@
 //    V (64 x HV), bf16, +1 KB alignment and 128 B of mbarriers
 //    (`Config::kSmem`; flash_attention.py's smem_bytes_tc); one block
 //    per SM.
-#include <cuda.h>
-#include <cudaTypedefs.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "wgmma_tma.cuh"
 
 namespace {
-
-using bf16 = __nv_bfloat16;
 
 constexpr float kNegInf = -1e30f;
 
 enum Kind { kCausal = 0, kLocal = 1, kFull = 2 };
-
-// D (+)= A B: A (64 x 16), B (16 x 64), both K-major in shared memory.
-__device__ __forceinline__ void wgmma_ss_m64n64k16(
-    float (&d)[32], uint64_t da, uint64_t db,
-    int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// D += P V: A (64 x 16) from registers, B (16 x 64) MN-major in shared memory.
-__device__ __forceinline__ void wgmma_rs_m64n64k16(
-    float (&d)[32], uint32_t a0, uint32_t a1,
-    uint32_t a2, uint32_t a3, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
-}
-
-// D += P V: A (64 x 16) from registers, B (16 x 128) MN-major in shared memory.
-__device__ __forceinline__ void wgmma_rs_m64n128k16(
-    float (&d)[64], uint32_t a0, uint32_t a1,
-    uint32_t a2, uint32_t a3, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
-}
-
-// D += P V: A (64 x 16) from registers, B (16 x 256) MN-major in shared memory.
-__device__ __forceinline__ void wgmma_rs_m64n256k16(
-    float (&d)[128], uint32_t a0, uint32_t a1,
-    uint32_t a2, uint32_t a3, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
-        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
-        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
-        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
-        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
-        "+f"(d[126]), "+f"(d[127])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-// Keeps the compiler from moving register reads or writes of an
-// accumulator across the asynchronous wgmma that owns it.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-// The arrival of the one thread that issues a stage's copies, with the
-// bytes they will bring (the phase completes when all have landed).
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
-                                                      uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar), "r"(bytes)
-               : "memory");
-}
-// Waits for the completion of the barrier phase of parity `parity`.  A
-// wait that outlasts any legitimate run (a broken hand-off: ~5 s of
-// cycles) traps, so a fault ends the launch with an error instead of
-// hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  const long long t0 = clock64();
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock64() - t0 > (1ll << 33)) __trap();
-  }
-}
-// TMA: the (64-column, rows) box at (c0, c1, c2, c3) of a 4-D tensor map
-// into shared memory at dst, 128-byte swizzled as the map says; its
-// bytes complete on the mbarrier `bar`.
-__device__ __forceinline__ void tma_load_4d(uint32_t dst,
-                                            const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
-      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
-        "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&p);
-}
-
-template <int HV>
-__device__ __forceinline__ void wgmma_pv(float (&acc)[HV / 2], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint64_t db) {
-  if constexpr (HV == 64) {
-    wgmma_rs_m64n64k16(acc, a0, a1, a2, a3, db);
-  } else if constexpr (HV == 128) {
-    wgmma_rs_m64n128k16(acc, a0, a1, a2, a3, db);
-  } else {
-    static_assert(HV == 256, "P V at n64, n128 or n256");
-    wgmma_rs_m64n256k16(acc, a0, a1, a2, a3, db);
-  }
-}
 
 // keys per kv tile, at every width
 constexpr int kBK = 64;
@@ -432,9 +226,9 @@ __global__ void __launch_bounds__(C::kThreads, 1)
 flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_k,
                           const __grid_constant__ CUtensorMap tm_v,
-                          bf16* __restrict__ o, int Sq, int Sk, int H,
-                          int Hkv, int hd_v, int kind, int window,
-                          float scale_log2) {
+                          bf16* __restrict__ o, float* __restrict__ lse,
+                          int Sq, int Sk, int H, int Hkv, int hd_v, int kind,
+                          int window, float scale_log2) {
   constexpr int HQ = C::kHQ, HV = C::kHV;
   constexpr int kStages = C::kStages, kBQ = C::kBQ;
   constexpr int kConsumers = C::kConsumers;
@@ -564,7 +358,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
       const uint32_t sV = k_tile(kt) + C::kKBytes;
 #pragma unroll
       for (int kk = 0; kk < kBK / 16; ++kk) {
-        wgmma_pv<HV>(R.acc, R.p[4 * kk], R.p[4 * kk + 1], R.p[4 * kk + 2],
+        wgmma_rs<HV>(R.acc, R.p[4 * kk], R.p[4 * kk + 1], R.p[4 * kk + 2],
                      R.p[4 * kk + 3],
                      desc_sw128(sV + kk * 16 * 128, kBK * 128, 1024));
       }
@@ -615,6 +409,21 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
       R.l_a += __shfl_xor_sync(0xffffffffu, R.l_a, off);
       R.l_b += __shfl_xor_sync(0xffffffffu, R.l_b, off);
     }
+    // Each row's log-sum-exp of the scaled scores, for the backward
+    // (flash_attention_bwd_tc.cu): (m scale log2(e) + log2 l) ln 2, l the
+    // sum of the f32 p (before their rounding to bf16); a row with no
+    // unmasked key gives -inf.  Serving passes no buffer.
+    if (lse != nullptr && (lane & 3) == 0) {
+      const float ln2 = 0.6931471805599453f;
+      if (qa < Sq)
+        lse[(size_t)bh * Sq + qa] =
+            ((R.m_a == kNegInf ? 0.f : R.m_a * scale_log2) + log2f(R.l_a)) *
+            ln2;
+      if (qb < Sq)
+        lse[(size_t)bh * Sq + qb] =
+            ((R.m_b == kNegInf ? 0.f : R.m_b * scale_log2) + log2f(R.l_b)) *
+            ln2;
+    }
     // o = acc / max(l, 1e-30), as one reciprocal per row (the output is
     // bf16: the product's extra rounding is far below its ulp); only the
     // columns below hd_v (a multiple of 8) are stored
@@ -636,38 +445,10 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// A (width, heads, S, B) bf16 tensor map of q, k or v with the tensor's
-// own strides (in elements: head, row, batch; the columns contiguous),
-// whose boxes are 64 columns by `rows` rows of one (batch, head),
-// 128-byte swizzled; columns past `width` and rows past S read as zeros.
-bool tensor_map(CUtensorMap* map, const void* base, int width, int heads,
-                int S, int B, const long long* strides, int rows) {
-  static PFN_cuTensorMapEncodeTiled encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
-                                cudaEnableDefault, &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      return false;
-    encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled>(fn);
-  }
-  const cuuint64_t dims[4] = {(cuuint64_t)width, (cuuint64_t)heads,
-                              (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t bytes[3] = {2ull * strides[0], 2ull * strides[1],
-                               2ull * strides[2]};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t step[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(base), dims, bytes, box, step,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 struct Args {
   const void *q, *k, *v;
   void* o;
+  float* lse;   // (B, H, Sq) f32, or null
   int B, Sq, Sk, H, Hkv, hd, hd_v, kind, window;
   float scale_log2;
   const long long* strides;   // q, k, v: (head, row, batch) each
@@ -696,8 +477,8 @@ int launch(const Args& a) {
   if (q_tiles > 65535) return cudaErrorInvalidValue;
   const dim3 grid(a.B * a.H, q_tiles);
   fn<<<grid, C::kThreads, a.smem, a.stream>>>(
-      tm_q, tm_k, tm_v, static_cast<bf16*>(a.o), a.Sq, a.Sk, a.H, a.Hkv,
-      a.hd_v, a.kind, a.window, a.scale_log2);
+      tm_q, tm_k, tm_v, static_cast<bf16*>(a.o), a.lse, a.Sq, a.Sk, a.H,
+      a.Hkv, a.hd_v, a.kind, a.window, a.scale_log2);
   return cudaGetLastError();
 }
 
@@ -706,12 +487,13 @@ int launch(const Args& a) {
 // bf16 only; hd and hd_v multiples of 8 whose padded pair (each rounded
 // up to 64) is a `Tile`; strides: nine element strides (head, row,
 // batch of q, then k, then v), each a multiple of 8; o contiguous
-// (B, Sq, H, hd_v).  scale_log2 = hd^-0.5 * log2(e).  Returns a
+// (B, Sq, H, hd_v); lse null, or (B, H, Sq) f32 for each row's
+// log-sum-exp.  scale_log2 = hd^-0.5 * log2(e).  Returns a
 // cudaError_t (0 on success).
 extern "C" int flash_attention_tc_launch(const void* q, const void* k,
-                                         const void* v, void* o, int B,
-                                         int Sq, int Sk, int H, int Hkv,
-                                         int hd, int hd_v, int kind,
+                                         const void* v, void* o, float* lse,
+                                         int B, int Sq, int Sk, int H,
+                                         int Hkv, int hd, int hd_v, int kind,
                                          int window, float scale_log2,
                                          const long long* strides, int smem,
                                          void* stream) {
@@ -719,7 +501,7 @@ extern "C" int flash_attention_tc_launch(const void* q, const void* k,
   if (Hkv <= 0 || H % Hkv != 0 || Sk <= 0 || hd <= 0 || hd_v <= 0 ||
       hd % 8 != 0 || hd_v % 8 != 0)
     return cudaErrorInvalidValue;
-  const Args a{q, k, v, o, B, Sq, Sk, H, Hkv, hd, hd_v, kind, window,
+  const Args a{q, k, v, o, lse, B, Sq, Sk, H, Hkv, hd, hd_v, kind, window,
                scale_log2, strides, smem, static_cast<cudaStream_t>(stream)};
   const int hq = (hd + 63) / 64 * 64, hv = (hd_v + 63) / 64 * 64;
   if (hq == 64 && hv == 64) return launch<64, 64>(a);

@@ -23,14 +23,25 @@ the kernels' own ragged edge.  On a CPU tensor the same function runs
 `flash_attention_plain`, the plain PyTorch version (the masked softmax
 written out in f32); on a CUDA tensor it launches a kernel or raises.
 
-The backward (`flash_attention_bwd`) is `csrc/flash_attention_bwd.cu`:
-two launches on the CUDA cores (dq with each row's log-sum-exp and
-rowsum(dO o), then dk and dv a kv tile and kv head a block), f32 math
-for f32 or bf16 inputs, deterministic (no atomics).  Its plain version
-is `flash_attention_bwd_plain`.  `FlashAttentionFn` is the
-differentiable form, which `ops.flash_attention` always runs: the
-forward route above, and the backward kernel (the plain version on CPU
-tensors).  Where no grad is recorded it saves nothing.
+The backward (`flash_attention_bwd`) has its own route, `bwd_route`.
+bf16 at the padded width pairs of `BWD_TC_PAIRS` ((64, 64) and
+(256, 256), what the full-width train runs launch) goes to
+`csrc/flash_attention_bwd_tc.cu`: wgmma on the bf16 tensor cores, dq
+(and each q tile's lse and rowsum(dO o)) a q tile a block, then dk and
+dv a kv tile a block in the transposed frame, the heads of a GQA group
+split over blocks and summed in order where the kv tiles alone would
+leave SMs idle (`bwd_tc_head_split`).  It reads each row's log-sum-exp
+from the forward, which the tensor-core forward writes where it is asked
+to (`flash_attention_kernel(..., with_lse=True)`).  f32, and bf16 at
+the other pairs, go to `csrc/flash_attention_bwd.cu`: two launches on
+the CUDA cores (dq with each row's log-sum-exp and rowsum(dO o)
+recomputed, then dk and dv a kv tile and kv head a block), f32 math.
+Both are deterministic (no atomics).  Their plain version is
+`flash_attention_bwd_plain`.  `FlashAttentionFn` is the differentiable
+form, which `ops.flash_attention` always runs: the forward route above
+(with lse where a grad is recorded and the backward takes it), and the
+backward route (the plain version on CPU tensors).  Where no grad is
+recorded it saves nothing.
 """
 from __future__ import annotations
 
@@ -63,14 +74,28 @@ LOG2E = 1.4426950408889634
 #: the backward kernel's q-tile rows and kv-tile keys
 #: (csrc/flash_attention_bwd.cu)
 BWD_BQ, BWD_BK = 64, 32
+#: the tensor-core backward's instantiations (`Tile` in
+#: csrc/flash_attention_bwd_tc.cu), by padded (q/k width, v width): (ring
+#: stages, warpgroups of the dk / dv launch that share a kv tile, each
+#: owning that share of the columns)
+BWD_TC_PAIRS = {(64, 64): (2, 1), (256, 256): (2, 2)}
+#: the tensor-core backward's q-tile rows and kv-tile keys
+BWD_TC_BQ = BWD_TC_BK = 64
+#: the dk / dv launch splits a GQA group's heads over blocks, one head a
+#: block, where (kv tiles x B x Hkv) is below this many blocks (the
+#: H100's SMs), so that it is deterministic for a shape on every card
+BWD_TC_SPLIT_BELOW = 132
 
 #: launches of either CUDA kernel (the plain version does not count),
 #: and of each: the CUDA-core kernel and the bf16 tensor-core kernel
 launches = 0
 core_launches = 0
 tc_launches = 0
-#: calls of the backward kernel (each two launches: dq, then dk and dv)
+#: calls of either backward kernel (each two or three launches: dq, then
+#: dk and dv), and of each: the CUDA-core kernel and the tensor-core one
 bwd_launches = 0
+bwd_core_launches = 0
+bwd_tc_launches = 0
 
 
 def tc_widths(hd: int, hd_v: int) -> tuple[int, int]:
@@ -98,6 +123,23 @@ def route(dtype: torch.dtype, hd: int, hd_v: int) -> str:
                      f"{MAX_HEAD_DIM}")
 
 
+def bwd_route(dtype: torch.dtype, hd: int, hd_v: int) -> str:
+    """Which backward kernel takes these inputs: "tc" (bf16 where the
+    padded pair is one of BWD_TC_PAIRS, hd and hd_v multiples of 8:
+    tensor cores) or "core" (f32, and bf16 at other widths: CUDA cores);
+    raises on what neither takes."""
+    if dtype not in DTYPE_CODES:
+        raise ValueError(f"flash_attention_bwd: dtype {dtype} not "
+                         f"supported (f32 or bf16)")
+    if (dtype == torch.bfloat16 and hd > 0 and hd_v > 0 and hd % 8 == 0
+            and hd_v % 8 == 0 and tc_widths(hd, hd_v) in BWD_TC_PAIRS):
+        return "tc"
+    if 0 < hd <= MAX_HEAD_DIM and 0 < hd_v <= MAX_HEAD_DIM:
+        return "core"
+    raise ValueError(f"flash_attention_bwd: head widths hd={hd}, "
+                     f"hd_v={hd_v}; the kernel takes <= {MAX_HEAD_DIM}")
+
+
 def kv_tile_range(q_start: int, rows: int, Sq: int, Sk: int, *, kind: str,
                   window: int, bk: int) -> tuple[int, int]:
     """[begin, end) of the kv tiles of `bk` keys that the q rows
@@ -115,17 +157,30 @@ def kv_tile_range(q_start: int, rows: int, Sq: int, Sk: int, *, kind: str,
 
 
 def bwd_q_tile_range(k_start: int, Sq: int, Sk: int, *, kind: str,
-                     window: int) -> tuple[int, int]:
-    """[begin, end) of the q tiles of BWD_BQ rows whose mask reaches keys
-    [k_start, k_start + BWD_BK): the tiles the backward kernel's second
+                     window: int, bq: int = BWD_BQ,
+                     bk: int = BWD_BK) -> tuple[int, int]:
+    """[begin, end) of the q tiles of `bq` rows whose mask reaches keys
+    [k_start, k_start + bk): the tiles a backward kernel's dk / dv
     launch walks for one kv tile (`q_tiles` in
-    csrc/flash_attention_bwd.cu)."""
-    end = -(-Sq // BWD_BQ)
-    begin = 0 if kind == "full" else k_start // BWD_BQ
+    csrc/flash_attention_bwd.cu; `fa_bwd_tc_dkdv` in
+    csrc/flash_attention_bwd_tc.cu at BWD_TC_BQ, BWD_TC_BK)."""
+    end = -(-Sq // bq)
+    begin = 0 if kind == "full" else k_start // bq
     if kind == "local":
-        k_last = min(k_start + BWD_BK, Sk) - 1
-        end = min(end, min(Sq - 1, k_last + window - 1) // BWD_BQ + 1)
+        k_last = min(k_start + bk, Sk) - 1
+        end = min(end, min(Sq - 1, k_last + window - 1) // bq + 1)
     return begin, max(begin, end)
+
+
+def bwd_tc_head_split(B: int, Sk: int, H: int, Hkv: int) -> int:
+    """Blocks a GQA group's heads are split over in the tensor-core
+    backward's dk / dv launch: one head a block (H // Hkv) where the kv
+    tiles alone, (kv tiles x B x Hkv) blocks, are fewer than
+    BWD_TC_SPLIT_BELOW, else 1 (the whole group a block)."""
+    G = H // Hkv
+    if G > 1 and -(-Sk // BWD_TC_BK) * B * Hkv < BWD_TC_SPLIT_BELOW:
+        return G
+    return 1
 
 
 def smem_bytes(hd: int, hd_v: int) -> int:
@@ -161,6 +216,19 @@ def bwd_smem_bytes(hd: int, hd_v: int) -> int:
                 + BWD_BK * (hd_v + 1) + BWD_BQ * (BWD_BK + 1) + 2 * BWD_BQ)
 
 
+def bwd_tc_smem_bytes(hd: int, hd_v: int) -> int:
+    """Dynamic shared memory of one block of either tensor-core backward
+    launch (`Config::kSmem`, which its launcher requires): the fixed
+    pair of 64-row bf16 tiles (Q and dO, or K and V) and the ring's
+    stages of the other pair at the padded widths, each stage's lse and
+    D of 64 rows (512 bytes), plus 1 KB to align the swizzled tiles and
+    128 bytes of mbarriers."""
+    hq, hv = tc_widths(hd, hd_v)
+    stages, _ = BWD_TC_PAIRS[(hq, hv)]
+    pair = 2 * 64 * (hq + hv)
+    return (1 + stages) * pair + stages * 2 * BWD_TC_BQ * 4 + 1024 + 128
+
+
 def _fn():
     fn = build.load("flash_attention").flash_attention_launch
     p, i = ctypes.c_void_p, ctypes.c_int
@@ -173,8 +241,8 @@ def _fn():
 def _fn_tc():
     fn = build.load("flash_attention_tc").flash_attention_tc_launch
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, ctypes.c_float,
-                   p, i, p]
+    fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i,
+                   ctypes.c_float, p, i, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -183,6 +251,14 @@ def _fn_bwd():
     fn = build.load("flash_attention_bwd").flash_attention_bwd_launch
     p, i = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [p] * 10 + [i] * 9 + [ctypes.c_float, i, i, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _fn_bwd_tc():
+    fn = build.load("flash_attention_bwd_tc").flash_attention_bwd_tc_launch
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [p] * 12 + [i] * 9 + [f, f, i, i, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -201,10 +277,12 @@ def mask(Sq: int, Sk: int, *, kind: str, window: int,
     raise ValueError(f"unknown attention kind {kind!r}")
 
 
-def flash_attention_plain(q, k, v, *, kind: str = "causal", window: int = 0):
+def flash_attention_plain(q, k, v, *, kind: str = "causal", window: int = 0,
+                          with_lse: bool = False):
     """The plain PyTorch version of `flash_attention_kernel`, same
     contract: the (Sq, Sk) scores in f32, masked to -1e30, softmax, then
-    the weighted sum of v."""
+    the weighted sum of v; with_lse: also each row's log-sum-exp of the
+    masked scores, (B, H, Sq) f32."""
     B, Sq, H, hd = q.shape
     Sk, Hkv, hd_v = k.shape[1], k.shape[2], v.shape[-1]
     G = H // Hkv
@@ -217,7 +295,10 @@ def flash_attention_plain(q, k, v, *, kind: str = "causal", window: int = 0):
     l = p.sum(dim=-1, keepdim=True)
     o = torch.einsum("bkgqs,bskd->bkgqd", p, v.float())
     o = o / torch.clamp_min(l, 1e-30)
-    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd_v).to(q.dtype)
+    o = o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd_v).to(q.dtype)
+    if not with_lse:
+        return o
+    return o, torch.logsumexp(s, dim=-1).reshape(B, H, Sq)
 
 
 def _tma_strides(t) -> list[int] | None:
@@ -239,9 +320,10 @@ def _tma_strides(t) -> list[int] | None:
     return out
 
 
-def _launch_tc(q, k, v, kind: str, window: int):
+def _launch_tc(q, k, v, kind: str, window: int, with_lse: bool = False):
     """The tensor-core kernel on checked bf16 inputs, each read with its
-    own strides where TMA can (else from a contiguous copy)."""
+    own strides where TMA can (else from a contiguous copy); with_lse:
+    also each row's log-sum-exp, (B, H, Sq) f32."""
     global launches, tc_launches
     B, Sq, H, hd = q.shape
     Sk, Hkv, hd_v = k.shape[1], k.shape[2], v.shape[-1]
@@ -256,8 +338,11 @@ def _launch_tc(q, k, v, kind: str, window: int):
     q, k, v = ts
     smem = smem_bytes_tc(hd, hd_v)
     o = torch.empty((B, Sq, H, hd_v), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _fn_tc()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                   None if lse is None else lse.data_ptr(),
                    B, Sq, Sk, H, Hkv, hd, hd_v, KINDS[kind], int(window),
                    hd ** -0.5 * LOG2E, (ctypes.c_longlong * 9)(*strides),
                    smem, stream)
@@ -269,7 +354,7 @@ def _launch_tc(q, k, v, kind: str, window: int):
             f"memory)")
     launches += 1
     tc_launches += 1
-    return o
+    return o if lse is None else (o, lse)
 
 
 def _launch_core(q, k, v, kind: str, window: int):
@@ -299,13 +384,18 @@ def _launch_core(q, k, v, kind: str, window: int):
     return o
 
 
-def flash_attention_kernel(q, k, v, *, kind: str = "causal", window: int = 0):
+def flash_attention_kernel(q, k, v, *, kind: str = "causal", window: int = 0,
+                           with_lse: bool = False):
     """q: (B, Sq, H, hd); k: (B, Sk, Hkv, hd); v: (B, Sk, Hkv, hd_v);
     H a multiple of Hkv (head h reads kv head h // (H // Hkv)); f32 or
     bf16, one dtype (`route` says which kernel takes them).  Returns
-    (B, Sq, H, hd_v) in q's dtype."""
+    (B, Sq, H, hd_v) in q's dtype; with_lse: (o, each row's log-sum-exp
+    of the scaled, masked scores (B, H, Sq) f32), which only the
+    tensor-core kernel writes (the backward it feeds takes only those
+    widths)."""
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, kind=kind, window=window)
+        return flash_attention_plain(q, k, v, kind=kind, window=window,
+                                     with_lse=with_lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_kernel: unsupported device "
                          f"{q.device}")
@@ -327,7 +417,11 @@ def flash_attention_kernel(q, k, v, *, kind: str = "causal", window: int = 0):
                              f"{t.dtype} on {t.device}, q {q.dtype} on "
                              f"{q.device}")
     if route(q.dtype, hd, hd_v) == "tc":
-        return _launch_tc(q, k, v, kind, window)
+        return _launch_tc(q, k, v, kind, window, with_lse)
+    if with_lse:
+        raise ValueError(f"flash_attention_kernel: lse is written by the "
+                         f"tensor-core kernel only ({q.dtype}, hd={hd}, "
+                         f"hd_v={hd_v})")
     return _launch_core(q, k, v, kind, window)
 
 
@@ -360,13 +454,14 @@ def flash_attention_bwd_plain(q, k, v, o, do, *, kind: str = "causal",
 
 
 def flash_attention_bwd(q, k, v, o, do, *, kind: str = "causal",
-                        window: int = 0):
+                        window: int = 0, lse=None):
     """dq, dk, dv of `flash_attention_kernel`'s o = attention(q, k, v)
     given do = dL/do (o and do (B, Sq, H, hd_v) in q's dtype).  CPU
-    tensors run `flash_attention_bwd_plain`; CUDA tensors launch
-    `csrc/flash_attention_bwd.cu` (contiguous copies of what is not, as
-    MLA's v, a slice of its kv) or raise."""
-    global bwd_launches
+    tensors run `flash_attention_bwd_plain`; CUDA tensors launch the
+    kernel `bwd_route` names or raise: "tc" needs the forward's lse
+    ((B, H, Sq) f32, `flash_attention_kernel(..., with_lse=True)`),
+    "core" recomputes it (contiguous copies of what is not contiguous,
+    as MLA's v, a slice of its kv)."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, do, kind=kind,
                                          window=window)
@@ -377,12 +472,7 @@ def flash_attention_bwd(q, k, v, o, do, *, kind: str = "causal",
     Sk, Hkv, hd_v = k.shape[1], k.shape[2], v.shape[-1]
     if kind not in KINDS:
         raise ValueError(f"unknown attention kind {kind!r}")
-    if q.dtype not in DTYPE_CODES:
-        raise ValueError(f"flash_attention_bwd: dtype {q.dtype} not "
-                         f"supported (f32 or bf16)")
-    if not (0 < hd <= MAX_HEAD_DIM and 0 < hd_v <= MAX_HEAD_DIM):
-        raise ValueError(f"flash_attention_bwd: head widths hd={hd}, "
-                         f"hd_v={hd_v}; the kernel takes <= {MAX_HEAD_DIM}")
+    which = bwd_route(q.dtype, hd, hd_v)
     if (tuple(k.shape) != (B, Sk, Hkv, hd) or tuple(v.shape[:3])
             != (B, Sk, Hkv) or Hkv <= 0 or H % Hkv or Sk <= 0):
         raise ValueError(f"flash_attention_bwd: shapes q {tuple(q.shape)}, "
@@ -395,11 +485,30 @@ def flash_attention_bwd(q, k, v, o, do, *, kind: str = "causal",
     if tuple(o.shape) != (B, Sq, H, hd_v) or o.shape != do.shape:
         raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} and do "
                          f"{tuple(do.shape)} must be {(B, Sq, H, hd_v)}")
+    q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
+    if which == "core":
+        return _bwd_core(q, k, v, o, do, kind, window)
+    if (lse is None or tuple(lse.shape) != (B, H, Sq)
+            or lse.dtype != torch.float32 or lse.device != q.device):
+        got = None if lse is None else (tuple(lse.shape), lse.dtype,
+                                        lse.device)
+        raise ValueError(f"flash_attention_bwd: the tensor-core backward "
+                         f"reads the forward's lse, (B, H, Sq) = "
+                         f"{(B, H, Sq)} f32 on {q.device}; got {got}")
+    return _bwd_tc(q, k, v, o, do, lse.contiguous(), kind, window)
+
+
+def _bwd_core(q, k, v, o, do, kind: str, window: int):
+    """The CUDA-core backward on checked contiguous inputs, f32 or bf16 at
+    any widths it takes (bf16 also where the tensor cores take them, for
+    a caller that times one kernel against the other)."""
+    global bwd_launches, bwd_core_launches
+    B, Sq, H, hd = q.shape
+    Sk, Hkv, hd_v = k.shape[1], k.shape[2], v.shape[-1]
     smem = bwd_smem_bytes(hd, hd_v)
     if smem > SMEM_OPTIN_BYTES:
         raise ValueError(f"flash_attention_bwd: {smem} bytes of shared "
                          f"memory exceed the {SMEM_OPTIN_BYTES}-byte opt-in")
-    q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     dd = torch.empty_like(lse)
@@ -415,24 +524,75 @@ def flash_attention_bwd(q, k, v, o, do, *, kind: str = "causal",
             f"{err} (B={B}, Sq={Sq}, Sk={Sk}, H={H}, Hkv={Hkv}, hd={hd}, "
             f"hd_v={hd_v}, {smem} bytes of shared memory)")
     bwd_launches += 1
+    bwd_core_launches += 1
+    return dq, dk, dv
+
+
+def _bwd_tc(q, k, v, o, do, lse, kind: str, window: int):
+    """The tensor-core backward on checked contiguous bf16 inputs and the
+    forward's lse: the scratch of each q tile's lse and D, and, where the
+    dk / dv launch splits the heads (`bwd_tc_head_split`), the f32
+    partials it sums."""
+    global bwd_launches, bwd_tc_launches
+    B, Sq, H, hd = q.shape
+    Sk, Hkv, hd_v = k.shape[1], k.shape[2], v.shape[-1]
+    smem = bwd_tc_smem_bytes(hd, hd_v)
+    split = bwd_tc_head_split(B, Sk, H, Hkv)
+    dev = q.device
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    ld = torch.empty((B * H * -(-Sq // BWD_TC_BQ) * 2 * BWD_TC_BQ,),
+                     dtype=torch.float32, device=dev)
+    part_k = part_v = None
+    if split > 1:
+        part_k = torch.empty((B, Sk, Hkv * split, hd), dtype=torch.float32,
+                             device=dev)
+        part_v = torch.empty((B, Sk, Hkv * split, hd_v),
+                             dtype=torch.float32, device=dev)
+    err = _fn_bwd_tc()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), ld.data_ptr(),
+        None if part_k is None else part_k.data_ptr(),
+        None if part_v is None else part_v.data_ptr(), B, Sq, Sk, H, Hkv,
+        hd, hd_v, KINDS[kind], int(window), hd ** -0.5 * LOG2E, hd ** -0.5,
+        split, smem, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"flash_attention tensor-core backward launch failed: CUDA "
+            f"error {err} (B={B}, Sq={Sq}, Sk={Sk}, H={H}, Hkv={Hkv}, "
+            f"hd={hd}, hd_v={hd_v}, head split {split}, {smem} bytes of "
+            f"shared memory)")
+    bwd_launches += 1
+    bwd_tc_launches += 1
     return dq, dk, dv
 
 
 class FlashAttentionFn(torch.autograd.Function):
     """B5 with its backward: the forward route of `flash_attention_kernel`
     (tensor cores or CUDA cores, unchanged), and `flash_attention_bwd` on
-    the saved q, k, v and o."""
+    the saved q, k, v and o, and lse where the backward reads it.
+    `need_lse` (the caller records a grad: inside `forward` grad mode is
+    off, so `ops.flash_attention` says so): the forward then also keeps
+    each row's log-sum-exp where the backward takes it, on the CPU (the
+    plain version's) and where `bwd_route` is "tc"."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kind: str, window: int):
-        o = flash_attention_kernel(q, k, v, kind=kind, window=window)
-        ctx.save_for_backward(q, k, v, o)
+    def forward(ctx, q, k, v, kind: str, window: int, need_lse: bool):
+        hd, hd_v = q.shape[-1], v.shape[-1]
+        lse = None
+        if need_lse and (q.device.type == "cpu"
+                         or bwd_route(q.dtype, hd, hd_v) == "tc"):
+            o, lse = flash_attention_kernel(q, k, v, kind=kind,
+                                            window=window, with_lse=True)
+        else:
+            o = flash_attention_kernel(q, k, v, kind=kind, window=window)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.kind, ctx.window = kind, window
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
+        q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o, do, kind=ctx.kind,
-                                         window=ctx.window)
-        return dq, dk, dv, None, None
+                                         window=ctx.window, lse=lse)
+        return dq, dk, dv, None, None, None

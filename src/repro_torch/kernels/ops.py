@@ -502,5 +502,9 @@ def flash_attention(q, k, v, *, kind: str = "causal", window: int = 0):
     `flash_attention.FlashAttentionFn`: the backward is B5's backward
     kernel (`flash_attention.flash_attention_bwd`).  Where no grad is
     recorded (serving's `torch.inference_mode`) the Function saves
-    nothing."""
-    return _fa.FlashAttentionFn.apply(q, k, v, kind, int(window))
+    nothing; where it is recorded, the forward also keeps each row's
+    log-sum-exp for the tensor-core backward (grad mode is off inside
+    the Function's forward, so it is decided here)."""
+    need_lse = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    return _fa.FlashAttentionFn.apply(q, k, v, kind, int(window), need_lse)

@@ -10,11 +10,13 @@ batched over a leading B); on a CUDA tensor it launches the kernel or
 raises.  Both return the final state in f32 beside h, and are bitwise
 equal on the card.
 
-The backward, `rglru_bwd` (`csrc/rglru_bwd.cu`, one thread per (batch
-row, channel): h recomputed in f32, then walked back), has the plain
-version `rglru_bwd_plain`; `RGLRUFn` is the differentiable form,
-which `ops.rglru_scan` always runs (it saves nothing where no grad is
-recorded).
+The backward, `rglru_bwd` (`csrc/rglru_bwd.cu`: the gates of every
+step in parallel, then the two chains a warp of channels at a time,
+their operands staged through shared memory, then every step's
+gradients in parallel, then d a_log summed over t from the end), has
+the plain version `rglru_bwd_plain`, to which it is bitwise equal;
+`RGLRUFn` is the differentiable form, which `ops.rglru_scan` always
+runs (it saves nothing where no grad is recorded).
 
 The kernel runs one block per (batch row, GROUP channels): a chain warp
 walks t over tiles of TILE steps in a ring of STAGES stages, which
@@ -41,6 +43,11 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 GROUP, CHUNK, PRODUCER_WARPS, STAGES = 16, 8, 4, 4
 TILE = 32 * PRODUCER_WARPS * CHUNK // GROUP
 
+#: the backward's chains (`kLanes`, `kTile`, `kStages` in
+#: csrc/rglru_bwd.cu): channels a block (one warp), steps a ring stage,
+#: ring stages
+BWD_LANES, BWD_TILE, BWD_STAGES = 32, 32, 12
+
 #: launches of the CUDA kernel (the plain version does not count), and of
 #: the backward kernel
 launches = 0
@@ -61,6 +68,12 @@ def _fn_bwd():
     fn.argtypes = [p] * 13 + [i, i, i, i, p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def bwd_smem_bytes() -> int:
+    """Dynamic shared memory of the backward's chains block: the ring of
+    a_t and b_t (or dh_t) tiles, f32."""
+    return 2 * BWD_STAGES * BWD_TILE * BWD_LANES * 4
 
 
 def _exp(v):
@@ -200,7 +213,8 @@ def rglru_bwd(x, a_log, gate_a, gate_x, h0, dh, dh_last):
     """The gradients of `rglru_kernel`'s (h, h_T) = RG-LRU(x, a_log,
     gate_a, gate_x, h0) given dh (B, T, D) and dh_last (B, D):
     (dx, da_log (D,) f32, dgate_a, dgate_x, dh0 (B, D) f32).  CPU tensors
-    run `rglru_bwd_plain`; CUDA tensors launch `csrc/rglru_bwd.cu` or
+    run `rglru_bwd_plain`; CUDA tensors launch `csrc/rglru_bwd.cu` (its
+    f32 scratch: a, b then h, e2 then d a_log's terms, dh then g) or
     raise."""
     global bwd_launches
     if x.device.type == "cpu":
@@ -225,13 +239,14 @@ def rglru_bwd(x, a_log, gate_a, gate_x, h0, dh, dh_last):
                 f"got {tuple(t.shape)} {t.dtype} on {t.device}")
     x, gate_a, gate_x, dh, a_log, h0, dh_last = (
         t.contiguous() for t in (x, gate_a, gate_x, dh, a_log, h0, dh_last))
-    hs = torch.empty((B, T, D), dtype=torch.float32, device=x.device)
+    scratch = torch.empty((4, B, T, D), dtype=torch.float32,
+                          device=x.device)
     dx, dga, dgx = (torch.empty_like(x) for _ in range(3))
     dh0 = torch.empty((B, D), dtype=torch.float32, device=x.device)
     part = torch.empty_like(dh0)
     err = _fn_bwd()(x.data_ptr(), gate_a.data_ptr(), gate_x.data_ptr(),
                     a_log.data_ptr(), h0.data_ptr(), dh.data_ptr(),
-                    dh_last.data_ptr(), hs.data_ptr(), dx.data_ptr(),
+                    dh_last.data_ptr(), scratch.data_ptr(), dx.data_ptr(),
                     dga.data_ptr(), dgx.data_ptr(), dh0.data_ptr(),
                     part.data_ptr(), B, T, D, DTYPE_CODES[x.dtype],
                     torch.cuda.current_stream(x.device).cuda_stream)

@@ -11,6 +11,10 @@ autograd `Function`s send CPU tensors to the plain versions and refuse
 any other non-CUDA device (no fallback).  The kernel's tile walk is
 mirrored in Python (`kv_tile_range`, `bwd_q_tile_range`): every
 unmasked (query, key) pair lies in a visited tile, for both launches.
+B6's backward kernel's phases (the gates, the two chains, the
+gradients, d a_log's sum from the end) are mirrored in PyTorch and
+held `torch.equal` to `rglru_bwd_plain`: the split reorders no
+rounding.
 
 Tolerances (f32, inputs from numpy seeds): dq, dk, dv within atol 2e-5,
 rtol 1e-4 of the reference (measured at most 2.9e-6 abs on these
@@ -18,7 +22,7 @@ shapes: the two frameworks sum in other orders), and of torch autograd
 through the port's blocked attention (measured 1.9e-6); the RG-LRU
 gradients within rtol 1e-4, atol 1e-5 of the reference's (the same
 recurrence walked backwards against an associative scan's vjp; measured
-3.8e-6 abs, 2.1e-7 of the largest).  CPU seconds: about 18, most of it
+3.8e-6 abs, 2.1e-7 of the largest).  CPU seconds: about 22, most of it
 JAX's tracing of the reference.
 """
 import re
@@ -215,3 +219,78 @@ def test_bwd_kernel_constants_match_source():
     assert fa.bwd_smem_bytes(64, 64) == 58_880
     assert max(fa.bwd_smem_bytes(a, b) for a in range(8, 257, 8)
                for b in range(8, 257, 8)) <= fa.SMEM_OPTIN_BYTES
+
+
+def _rglru_bwd_phases(x, a_log, gate_a, gate_x, h0, dh, dh_last):
+    """A mirror of csrc/rglru_bwd.cu's launches: (1) the gates of every
+    step at once, b = sqrt(max(z, 1e-12)) (i x) and dh in f32; (2) the
+    two chains, h forward from h0 and g backward from dh_last, each only
+    its multiply and add; (3) every step's gradients at once, from r, i,
+    z and the square root recomputed and a, e2, h_{t-1}, g; (4) d a_log's
+    terms summed from t = T - 1 down to 0, then over the batch rows."""
+    exp = rg._exp
+    r = torch.sigmoid(gate_a.float())                       # 1. gates
+    iv = torch.sigmoid(gate_x.float())
+    la = (rg.RG_C * a_log.float()) * r
+    e2 = exp(2.0 * la)
+    a = exp(la)
+    b = torch.sqrt(torch.clamp_min(1.0 - e2, 1e-12)) * (iv * x.float())
+    dhf = dh.float()
+    T = x.shape[1]
+    h, hs = h0.float(), torch.empty_like(a)                 # 2. chains
+    for t in range(T):
+        h = a[:, t] * h + b[:, t]
+        hs[:, t] = h
+    carry, g = dh_last.float(), torch.empty_like(a)
+    for t in range(T - 1, -1, -1):
+        g[:, t] = dhf[:, t] + carry
+        carry = a[:, t] * g[:, t]
+    r = torch.sigmoid(gate_a.float())                       # 3. gradients
+    iv = torch.sigmoid(gate_x.float())
+    xf = x.float()
+    z = 1.0 - e2
+    sq = torch.sqrt(torch.clamp_min(z, 1e-12))
+    u = iv * xf
+    hp = torch.cat([h0.float()[:, None], hs[:, :-1]], dim=1)
+    da, du, dsq = g * hp, g * sq, g * u
+    dx = du * iv
+    dgx = (du * xf) * (iv * (1.0 - iv))
+    dmax = dsq * (torch.full_like(sq, 0.5) / sq)
+    dz = torch.where(z > 1e-12, dmax, torch.where(
+        z == 1e-12, 0.5 * dmax, torch.zeros_like(dmax)))
+    dla = da * a + 2.0 * (-dz * e2)
+    term = dla * r
+    dga = (dla * (rg.RG_C * a_log.float())) * (r * (1.0 - r))
+    dal = torch.zeros_like(h)                               # 4. d a_log
+    for t in range(T - 1, -1, -1):
+        dal = dal + term[:, t]
+    return (dx.to(x.dtype), rg._batch_sum(8.0 * dal), dga.to(gate_a.dtype),
+            dgx.to(gate_x.dtype), carry)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,D", [(3, 77, 80), (2, 1, 77)])
+def test_rglru_bwd_phase_split_equals_plain(B, T, D, dtype):
+    """The kernel's phase split (gates, then chains, then gradients, then
+    d a_log's ordered sum) reorders no rounding: torch.equal to
+    `rglru_bwd_plain`."""
+    rng = np.random.default_rng(B * T + D)
+    f = lambda *s: torch.from_numpy(                          # noqa: E731
+        rng.standard_normal(s).astype(np.float32))
+    x, ga, gx, dh = (f(B, T, D).to(dtype) for _ in range(4))
+    a_log = torch.from_numpy(-rng.uniform(0.0, 0.5, D).astype(np.float32))
+    h0, dl = f(B, D) * 0.1, f(B, D)
+    got = _rglru_bwd_phases(x, a_log, ga, gx, h0, dh, dl)
+    want = rg.rglru_bwd_plain(x, a_log, ga, gx, h0, dh, dl)
+    for name, g, w in zip(("dx", "da_log", "dga", "dgx", "dh0"), got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w), name
+
+
+def test_rglru_bwd_constants_match_source():
+    src = (build.CSRC / "rglru_bwd.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    assert (int(consts["kLanes"]), int(consts["kTile"]),
+            int(consts["kStages"])) == (rg.BWD_LANES, rg.BWD_TILE,
+                                        rg.BWD_STAGES)
+    assert "2 * kRingFloats * 4" in src
+    assert rg.bwd_smem_bytes() == 2 * 12 * 32 * 32 * 4 == 98_304

@@ -99,8 +99,9 @@ def build_variants(specs: list[str]) -> list[dict]:
                          hq=r"(\d+)", hv=r"(\d+)"), src)}
         cu, lib = out / f"fa_tc_{i}.cu", out / f"libfa_tc_{i}.so"
         cu.write_text(src)
-        proc = subprocess.Popen([build._nvcc(), *NVCC_FLAGS, "-o", str(lib),
-                                 str(cu)], stdout=subprocess.PIPE,
+        proc = subprocess.Popen([build._nvcc(), *NVCC_FLAGS, "-I",
+                                 str(build.CSRC), "-o", str(lib), str(cu)],
+                                stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         todo.append((spec, pairs or list(tiles), tiles, lib, proc))
     built = []
@@ -125,7 +126,7 @@ def run_variant(var: dict, q, k, v, kind: str, window: int):
     strides = [s for t in (q, k, v) for s in fa._tma_strides(t)]
     o = torch.empty((B, Sq, H, hd_v), dtype=q.dtype, device=q.device)
     err = var["fn"](q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                    B, Sq, Sk, H, Hkv, hd, hd_v, fa.KINDS[kind], window,
+                    None, B, Sq, Sk, H, Hkv, hd, hd_v, fa.KINDS[kind], window,
                     hd ** -0.5 * fa.LOG2E, (ctypes.c_longlong * 9)(*strides),
                     var["smem"][fa.tc_widths(hd, hd_v)],
                     torch.cuda.current_stream().cuda_stream)

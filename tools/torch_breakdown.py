@@ -1,6 +1,6 @@
 """Where an epoch's time goes on the card, for the port's main paths.
 
-    python3 tools/torch_breakdown.py [--paths dense,sparse,sharded,lm]
+    python3 tools/torch_breakdown.py [--paths dense,sparse,sharded,lm,train]
                                      [--out breakdown.json]
 
 Builds the dense HIGGS and sparse criteo-shaped sessions of
@@ -38,6 +38,16 @@ rest (elementwise and reductions), with the host's share (prefill wall
 time less device busy time); the logits product (x @ lm_head, (8,192 x
 2,560) by (2,560 x 256,000)) alone by CUDA events; and a profiled run
 of 4 decode steps.  Not in the default `--paths`.
+
+The `train` path is `chip_smoke.py`'s three full-width train runs
+(`TRAIN_RUNS`: smollm-360m, recurrentgemma-2b, whisper-base; seeded
+weights, the Markov stream).  For each, after two warm-up steps it
+times one step (host clock, ending in the loss's read, as
+`launch.train` does) and profiles the next, whose device time it
+splits by kernel (`train_category`: B5's and B6's forward and backward
+kernels, the matrix products, the rest), with the device's busy share
+of the unprofiled step and the host's gap (step time less device busy
+time).  Not in the default `--paths`.
 
 Prints one JSON object per path and, with --out, writes them all to a
 file.  Needs one CUDA GPU and nvcc; imports nothing of JAX.
@@ -198,6 +208,63 @@ def lm_category(name: str) -> str:
     return "other (elementwise, reductions, copies)"
 
 
+def train_category(name: str) -> str:
+    """`lm_category`, with the backward kernels apart."""
+    if "fa_bwd_tc" in name:
+        return "flash_attention_bwd_tc (B5 backward, tensor cores)"
+    if "fa_bwd_" in name:
+        return "flash_attention_bwd (B5 backward, CUDA cores)"
+    if "rglru_bwd" in name:
+        return "rglru_bwd (B6 backward)"
+    return lm_category(name)
+
+
+def breakdown_train() -> list:
+    """Where a warm train step's time goes, for each full-width run."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch.train import batch_at
+    from repro_torch.optim import adamw
+    dev = torch.device("cuda")
+    recs = []
+    for name, run in cs.TRAIN_RUNS.items():
+        cfg = get_config(name)
+        opt_cfg = steps_lib.make_opt_cfg(cfg)
+        params = steps_lib.init_params(cfg, 0, dev)
+        state = adamw.init(params, opt_cfg)
+        step_fn = steps_lib.make_train_step(cfg, opt_cfg)
+        s = [0]
+
+        def step():
+            nonlocal params, state
+            b = batch_at(cfg, run["batch"], run["seq"], s[0], 0, dev)
+            params, state, metrics = step_fn(params, state, b)
+            s[0] += 1
+            return float(metrics["loss"])
+
+        for _ in range(2):                            # warm-up
+            step()
+        t = time.perf_counter()
+        step()
+        step_s = time.perf_counter() - t
+        prof = profile_epoch(step, step_s, full=True)
+        cats: dict[str, list] = {}
+        for kname, (us, n) in prof.pop("by_name").items():
+            c = cats.setdefault(train_category(kname), [0.0, 0])
+            c[0] += us
+            c[1] += n
+        rec = {"path": "train", "config": name, **run, "step_s": step_s,
+               "device_ms": {k: v[0] / 1e3 for k, v in cats.items()},
+               "launches": {k: v[1] for k, v in cats.items()},
+               "host_gap_ms": step_s * 1e3 - prof["device_us"] / 1e3,
+               "profile": prof}
+        print(json.dumps(rec), flush=True)
+        recs.append(rec)
+        del params, state, step_fn
+        torch.cuda.empty_cache()
+    return recs
+
+
 def breakdown_lm() -> dict:
     """Where recurrentgemma-2b's prefill time goes (and a decode step's)."""
     import numpy as np
@@ -272,7 +339,8 @@ def breakdown_lm() -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--paths", default="dense,sparse,sharded",
-                    help="comma-separated subset of dense,sparse,sharded,lm")
+                    help="comma-separated subset of dense,sparse,sharded,"
+                         "lm,train")
     ap.add_argument("--out", type=pathlib.Path, default=None)
     args = ap.parse_args()
     paths = args.paths.split(",")
@@ -296,6 +364,8 @@ def main() -> None:
         recs.append(breakdown_sharded())
     if "lm" in paths:
         recs.append(breakdown_lm())
+    if "train" in paths:
+        recs += breakdown_train()
     out = {"card": smi, "paths": recs}
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
