@@ -164,9 +164,31 @@ _OP_ARG = {"all_reduce": 1, "reduce": 2, "reduce_scatter": 2,
            "reduce_scatter_tensor": 2}
 
 
+def _result_bytes(name: str, args, kw) -> int:
+    """The bytes of a collective's result on the calling rank (the
+    reference's HLO convention, `launch.cost_analysis`): the output
+    tensor or list where the call takes one, else its one tensor."""
+    import torch
+
+    def size(x):
+        if isinstance(x, torch.Tensor):
+            return x.numel() * x.element_size()
+        if isinstance(x, (list, tuple)):
+            return sum(size(t) for t in x)
+        return 0
+
+    if name in ("all_gather", "all_gather_into_tensor", "reduce_scatter",
+                "reduce_scatter_tensor", "all_to_all", "all_to_all_single"):
+        first = args[0] if args else kw.get("output", kw.get(
+            "output_tensor", kw.get("output_tensor_list")))
+        return size(first)
+    return size(args[0] if args else kw.get("tensor"))
+
+
 class CollectiveRecorder:
     """Wraps this process's `torch.distributed` collectives: each call
-    is recorded as [name, op, dtype, floating, where] and then made."""
+    is recorded as [name, op, dtype, floating, where, result bytes] and
+    then made."""
 
     def __init__(self):
         self.calls: list[list] = []
@@ -196,7 +218,8 @@ class CollectiveRecorder:
                 op = str(op).rsplit(".", 1)[-1]
                 t = args[0] if args else kw.get("tensor", kw.get("output"))
                 dtype, floating = str(t.dtype), bool(t.is_floating_point())
-            self.calls.append([name, op, dtype, floating, _caller()])
+            self.calls.append([name, op, dtype, floating, _caller(),
+                               _result_bytes(name, args, kw)])
             return fn(*args, **kw)
         return recorded
 
@@ -207,7 +230,7 @@ def audit_calls(calls: list, case: str, *, deterministic: bool,
     if not deterministic:
         return []
     found, seen = [], set()
-    for name, op, dtype, floating, where in calls:
+    for name, op, dtype, floating, where, *_ in calls:
         if name in config.SUM_REDUCE_CALLS and op == "SUM" and floating:
             if (name, where) in seen:
                 continue

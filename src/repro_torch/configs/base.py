@@ -1,10 +1,13 @@
 """ArchConfig: one dataclass describes every architecture.
 
 A copy of the reference's `configs/base.py` with `dtype` a
-`torch.dtype`, without the reference's mesh fields (`fsdp`, `zero`,
-`shard_resid`, `layout`: the port trains and serves on one card) and
-its cost-counting switch `unroll_layers`; `opt_dtype`, the AdamW
-moments' dtype, is kept.  Every one of the reference's ten
+`torch.dtype`, without its cost-counting switch `unroll_layers` (the
+port counts a step on the `meta` device, `launch/counting.py`).  The
+mesh fields (`fsdp`, `zero`, `shard_resid`, `layout`, and the
+`batch_axes` and `zero_stage` they give) are kept: the dry run's spec
+transforms (`launch/steps.py` `model_param_specs`, `opt_state_specs`)
+and input specs (`launch/specs.py`) read them, while the one-card train
+and serve paths do not.  Every one of the reference's ten
 architectures is registered: GQA / local attention, MLA, MoE, RG-LRU
 and xLSTM blocks, the encoder-decoder and the vision frontend's stub.
 """
@@ -75,8 +78,25 @@ class ArchConfig:
     max_seq: int = 8192
     dtype: torch.dtype = torch.bfloat16
     remat: bool = True           # train: checkpoint each superblock
+    fsdp: bool = False           # deprecated alias for zero="zero3"
+    zero: str = ""               # "" | "zero1" | "zero3" (launch/steps)
     opt_dtype: str = "f32"       # AdamW moment dtype: f32 | bf16 | int8
+    shard_resid: bool = False    # shard the residual's d over 'model'
+    layout: str = "tp"           # "tp": TP over 'model', DP over the
+                                 # rest; "fsdp": batch over every axis,
+                                 # weights ZeRO-3-gathered per layer
     attn_chunk: int = 512        # KV chunk of the blocked attention
+
+    @property
+    def batch_axes(self) -> tuple:
+        return ("pod", "data", "model") if self.layout == "fsdp" \
+            else ("pod", "data")
+
+    @property
+    def zero_stage(self) -> str:
+        if self.zero:
+            return self.zero
+        return "zero3" if self.fsdp else "none"
 
     def __post_init__(self):
         if self.head_dim == 0 and self.n_heads:
@@ -96,6 +116,17 @@ class ArchConfig:
         from repro_torch.models.layers import tree_leaves
         return sum(math.prod(s.shape)
                    for s in tree_leaves(lm.param_specs(self)))
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: routed top-k + shared), the
+        reference's formula."""
+        full = self.param_count()
+        if not self.n_experts:
+            return full
+        expert_params = (self.n_layers - self.first_dense_layers) * \
+            self.n_experts * 3 * self.d_model * self.moe_d_ff
+        active_expert = expert_params * self.top_k / self.n_experts
+        return int(full - expert_params + active_expert)
 
 
 _REGISTRY: dict = {}

@@ -14,6 +14,7 @@ CONFIG = ArchConfig(
     qk_nope_dim=128, qk_rope_dim=64, v_head_dim=128,
     n_experts=64, n_shared_experts=2, top_k=6, moe_d_ff=1408,
     first_dense_layers=1,
+    zero="zero1", shard_resid=True,
 )
 
 

@@ -9,6 +9,7 @@ CONFIG = ArchConfig(
     name="granite-20b", family="dense",
     n_layers=52, d_model=6144, n_heads=48, n_kv_heads=1, d_ff=24576,
     vocab=49152,
+    zero="zero1", layout="fsdp",
 )
 
 

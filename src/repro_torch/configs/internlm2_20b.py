@@ -8,7 +8,7 @@ CONFIG = ArchConfig(
     name="internlm2-20b", family="dense",
     n_layers=48, d_model=6144, n_heads=48, n_kv_heads=8, d_ff=16384,
     vocab=92544,
-    rope_theta=1e6,
+    rope_theta=1e6, zero="zero1", shard_resid=True,
 )
 
 

@@ -12,7 +12,7 @@ CONFIG = ArchConfig(
     vocab=163840,
     n_experts=384, n_shared_experts=1, top_k=8, moe_d_ff=2048,
     first_dense_layers=1,
-    rope_theta=5e4, opt_dtype="int8",
+    rope_theta=5e4, zero="zero1", opt_dtype="int8", shard_resid=True,
 )
 
 

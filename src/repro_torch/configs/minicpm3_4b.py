@@ -11,6 +11,7 @@ CONFIG = ArchConfig(
     vocab=73448,
     attention="mla", kv_lora_rank=256, q_lora_rank=768,
     qk_nope_dim=64, qk_rope_dim=32, v_head_dim=64,
+    shard_resid=True,
 )
 
 

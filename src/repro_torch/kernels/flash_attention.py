@@ -49,7 +49,7 @@ import ctypes
 
 import torch
 
-from . import build
+from . import build, costs
 from .contracts import SMEM_OPTIN_BYTES
 
 NEG_INF = -1e30
@@ -295,7 +295,9 @@ def flash_attention_plain(q, k, v, *, kind: str = "causal", window: int = 0,
     l = p.sum(dim=-1, keepdim=True)
     o = torch.einsum("bkgqs,bskd->bkgqd", p, v.float())
     o = o / torch.clamp_min(l, 1e-30)
-    o = o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd_v).to(q.dtype)
+    # contiguous, as the kernels write it
+    o = o.permute(0, 3, 1, 2, 4).contiguous().reshape(B, Sq, H, hd_v) \
+        .to(q.dtype)
     if not with_lse:
         return o
     return o, torch.logsumexp(s, dim=-1).reshape(B, H, Sq)
@@ -384,6 +386,7 @@ def _launch_core(q, k, v, kind: str, window: int):
     return o
 
 
+@costs.counted("flash_attention", costs.flash_attention_call)
 def flash_attention_kernel(q, k, v, *, kind: str = "causal", window: int = 0,
                            with_lse: bool = False):
     """q: (B, Sq, H, hd); k: (B, Sk, Hkv, hd); v: (B, Sk, Hkv, hd_v);
@@ -392,11 +395,12 @@ def flash_attention_kernel(q, k, v, *, kind: str = "causal", window: int = 0,
     (B, Sq, H, hd_v) in q's dtype; with_lse: (o, each row's log-sum-exp
     of the scaled, masked scores (B, H, Sq) f32), which only the
     tensor-core kernel writes (the backward it feeds takes only those
-    widths)."""
+    widths).  On the `meta` device (the dry run's trace) the same
+    checks, then empty outputs of those shapes: nothing runs or loads."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, kind=kind, window=window,
                                      with_lse=with_lse)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention_kernel: unsupported device "
                          f"{q.device}")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
@@ -416,12 +420,19 @@ def flash_attention_kernel(q, k, v, *, kind: str = "causal", window: int = 0,
             raise ValueError(f"flash_attention_kernel: {name} is "
                              f"{t.dtype} on {t.device}, q {q.dtype} on "
                              f"{q.device}")
-    if route(q.dtype, hd, hd_v) == "tc":
-        return _launch_tc(q, k, v, kind, window, with_lse)
-    if with_lse:
+    tc = route(q.dtype, hd, hd_v) == "tc"
+    if with_lse and not tc:
         raise ValueError(f"flash_attention_kernel: lse is written by the "
                          f"tensor-core kernel only ({q.dtype}, hd={hd}, "
                          f"hd_v={hd_v})")
+    if q.device.type == "meta":
+        o = torch.empty((B, Sq, H, hd_v), dtype=q.dtype, device=q.device)
+        if not with_lse:
+            return o
+        return o, torch.empty((B, H, Sq), dtype=torch.float32,
+                              device=q.device)
+    if tc:
+        return _launch_tc(q, k, v, kind, window, with_lse)
     return _launch_core(q, k, v, kind, window)
 
 
@@ -449,10 +460,12 @@ def flash_attention_bwd_plain(q, k, v, o, do, *, kind: str = "causal",
     dq = torch.einsum("bkgqs,bskd->bqkgd", ds, kf) * scale
     dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qg) * scale
     dv = torch.einsum("bkgqs,bqkgd->bskd", p, dog)
-    return (dq.reshape(B, Sq, H, hd).to(q.dtype), dk.to(k.dtype),
-            dv.to(v.dtype))
+    # contiguous, as the kernels write them
+    return (dq.reshape(B, Sq, H, hd).to(q.dtype).contiguous(),
+            dk.to(k.dtype).contiguous(), dv.to(v.dtype).contiguous())
 
 
+@costs.counted("flash_attention_bwd", costs.flash_attention_bwd_call)
 def flash_attention_bwd(q, k, v, o, do, *, kind: str = "causal",
                         window: int = 0, lse=None):
     """dq, dk, dv of `flash_attention_kernel`'s o = attention(q, k, v)
@@ -461,11 +474,12 @@ def flash_attention_bwd(q, k, v, o, do, *, kind: str = "causal",
     kernel `bwd_route` names or raise: "tc" needs the forward's lse
     ((B, H, Sq) f32, `flash_attention_kernel(..., with_lse=True)`),
     "core" recomputes it (contiguous copies of what is not contiguous,
-    as MLA's v, a slice of its kv)."""
+    as MLA's v, a slice of its kv).  On the `meta` device: the same
+    checks, then empty gradients; nothing runs or loads."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, do, kind=kind,
                                          window=window)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention_bwd: unsupported device "
                          f"{q.device}")
     B, Sq, H, hd = q.shape
@@ -486,6 +500,8 @@ def flash_attention_bwd(q, k, v, o, do, *, kind: str = "causal",
         raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} and do "
                          f"{tuple(do.shape)} must be {(B, Sq, H, hd_v)}")
     q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
+    if which == "core" and q.device.type == "meta":
+        return tuple(torch.empty_like(t) for t in (q, k, v))
     if which == "core":
         return _bwd_core(q, k, v, o, do, kind, window)
     if (lse is None or tuple(lse.shape) != (B, H, Sq)
@@ -495,6 +511,8 @@ def flash_attention_bwd(q, k, v, o, do, *, kind: str = "causal",
         raise ValueError(f"flash_attention_bwd: the tensor-core backward "
                          f"reads the forward's lse, (B, H, Sq) = "
                          f"{(B, H, Sq)} f32 on {q.device}; got {got}")
+    if q.device.type == "meta":
+        return tuple(torch.empty_like(t) for t in (q, k, v))
     return _bwd_tc(q, k, v, o, do, lse.contiguous(), kind, window)
 
 

@@ -30,7 +30,7 @@ import ctypes
 
 import torch
 
-from . import build
+from . import build, costs
 
 #: the RG-LRU decay constant c (Griffin: a_t = a^(c r_t))
 RG_C = 8.0
@@ -110,14 +110,17 @@ def rglru_plain(x, a_log, gate_a, gate_x, h0):
     return out.to(x.dtype), h
 
 
+@costs.counted("rglru", costs.rglru_call)
 def rglru_kernel(x, a_log, gate_a, gate_x, h0):
     """x, gate_a, gate_x: (B, T, D) f32 or bf16, one dtype;
     a_log: (D,) f32 (log a < 0);  h0: (B, D) f32.
-    Returns (h (B, T, D) in x's dtype, h_T (B, D) f32)."""
+    Returns (h (B, T, D) in x's dtype, h_T (B, D) f32).  On the `meta`
+    device: the same checks, then empty outputs; nothing runs or
+    loads."""
     global launches
     if x.device.type == "cpu":
         return rglru_plain(x, a_log, gate_a, gate_x, h0)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"rglru_kernel: unsupported device {x.device}")
     if x.dim() != 3:
         raise ValueError(f"rglru_kernel: x must be (B, T, D), got "
@@ -140,6 +143,8 @@ def rglru_kernel(x, a_log, gate_a, gate_x, h0):
                                     (x, gate_a, gate_x, a_log, h0))
     out = torch.empty_like(x)
     h_last = torch.empty((B, D), dtype=torch.float32, device=x.device)
+    if x.device.type == "meta":
+        return out, h_last
     err = _fn()(x.data_ptr(), gate_a.data_ptr(), gate_x.data_ptr(),
                 a_log.data_ptr(), h0.data_ptr(), out.data_ptr(),
                 h_last.data_ptr(), B, T, D, DTYPE_CODES[x.dtype],
@@ -209,17 +214,19 @@ def _batch_sum(part):
     return out
 
 
+@costs.counted("rglru_bwd", costs.rglru_bwd_call)
 def rglru_bwd(x, a_log, gate_a, gate_x, h0, dh, dh_last):
     """The gradients of `rglru_kernel`'s (h, h_T) = RG-LRU(x, a_log,
     gate_a, gate_x, h0) given dh (B, T, D) and dh_last (B, D):
     (dx, da_log (D,) f32, dgate_a, dgate_x, dh0 (B, D) f32).  CPU tensors
     run `rglru_bwd_plain`; CUDA tensors launch `csrc/rglru_bwd.cu` (its
     f32 scratch: a, b then h, e2 then d a_log's terms, dh then g) or
-    raise."""
+    raise.  On the `meta` device: the same checks, then empty gradients;
+    nothing runs or loads."""
     global bwd_launches
     if x.device.type == "cpu":
         return rglru_bwd_plain(x, a_log, gate_a, gate_x, h0, dh, dh_last)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"rglru_bwd: unsupported device {x.device}")
     if x.dim() != 3 or x.dtype not in DTYPE_CODES:
         raise ValueError(f"rglru_bwd: x must be (B, T, D) f32 or bf16, got "
@@ -239,6 +246,10 @@ def rglru_bwd(x, a_log, gate_a, gate_x, h0, dh, dh_last):
                 f"got {tuple(t.shape)} {t.dtype} on {t.device}")
     x, gate_a, gate_x, dh, a_log, h0, dh_last = (
         t.contiguous() for t in (x, gate_a, gate_x, dh, a_log, h0, dh_last))
+    if x.device.type == "meta":
+        return (torch.empty_like(x), torch.empty_like(a_log),
+                torch.empty_like(gate_a), torch.empty_like(gate_x),
+                torch.empty_like(h0))
     scratch = torch.empty((4, B, T, D), dtype=torch.float32,
                           device=x.device)
     dx, dga, dgx = (torch.empty_like(x) for _ in range(3))

@@ -605,3 +605,131 @@ def make_streamed_epoch_mesh(scale: GLMScale, mesh: Mesh, source,
     epoch_fn.feed = feed
     epoch_fn.schedule = sched
     return epoch_fn
+
+
+# ---------------------------------------------------------------------------
+# The dry run's view of an epoch: its per-device inputs and kernel route,
+# and its analytic cost (the reference's `lower_glm`, `glm_analytic` and
+# `glm_model_flops`)
+# ---------------------------------------------------------------------------
+
+_BISECT_FLOPS = 40 * 12       # logistic delta: 40 bisection iters
+
+
+def lower_glm(arch: str, mesh) -> dict:
+    """What an epoch program of `arch` (a GLM_CONFIGS key, or a registry
+    dataset sized by `scale_for_dataset` on the CPU's topology) would
+    take on `mesh` (an `launch.mesh.AbstractMesh`, or any mesh with
+    `axis_names` and `shape`), found without launching anything: each
+    input's global shape, dtype, partition and per-device shard
+    (`glm_input_specs`), the argument bytes a device holds, and the
+    kernel route of a worker's local shapes (`ops.sparse_solver_plan`,
+    `ops.dense_kernel_misfit`)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.specs import shard_shape
+    scale = (GLM_CONFIGS[arch] if arch in GLM_CONFIGS
+             else scale_for_dataset(arch, device="cpu"))
+    W = _worker_count(mesh, scale)
+    _, _, _, tp = _axes(mesh, scale)
+    inputs = []
+    for spec in glm_input_specs(scale, mesh):
+        shard = shard_shape(spec.shape, spec.partition, mesh)
+        inputs.append({"shape": list(spec.shape), "dtype": str(spec.dtype),
+                       "partition": list(spec.partition),
+                       "shard": list(shard),
+                       "shard_bytes": math.prod(shard) * spec.dtype.itemsize})
+    n_local = scale.n // W
+    M = mesh.shape.get("model", 1)
+    if scale.kind == "sparse":
+        route, misfit = ops.sparse_solver_plan(
+            n_local, scale.nnz, scale.d, scale.bucket,
+            model_lanes=M if scale.feature_shard else 1)
+    else:
+        d_loc = scale.d // M if tp else scale.d
+        misfit = ops.dense_kernel_misfit(d_loc, n_local, scale.bucket)
+        route = "torch" if misfit else "kernel"
+    return {"scale": dataclasses.asdict(scale), "workers": W,
+            "n_local": n_local, "inputs": inputs,
+            "argument_bytes": sum(i["shard_bytes"] for i in inputs),
+            "route": route, "misfit": None if misfit is None else str(misfit)}
+
+
+def glm_analytic(scale: GLMScale, mesh, *, streamed: bool = False) -> dict:
+    """Per-device per-epoch {flops, bytes accessed, coll} estimates, the
+    reference's closed form term for term.  An axis of size 1 carries no
+    collective (so one card's record has none; the reference's meshes
+    have no such axis, and there the terms are its own).
+
+    ``streamed=True`` adds "h2d bytes", the host-to-device ingest bytes
+    a device takes an epoch (`planner.streamed_transfer_bytes`, the
+    planner's one model of them), kept apart from the HBM bytes: the
+    host link is ~70x slower than HBM."""
+    W = _worker_count(mesh, scale)
+    ex_axes, sync_axes, has_pod, tp = _axes(mesh, scale)
+    shape = mesh.shape
+    n_local = scale.n // W
+    B = scale.bucket
+    nb = n_local // B
+    d_loc = scale.d // shape.get("model", 1) if tp else scale.d
+
+    if scale.kind == "dense":
+        # per bucket: margins 2*d_loc*B + Gram d_loc*B^2 + v-update
+        # 2*d_loc*B + recursion B * (B axpy + bisection)
+        per_bucket = (2 * d_loc * B + d_loc * B * B + 2 * d_loc * B
+                      + B * (2 * B + _BISECT_FLOPS))
+        flops = nb * per_bucket
+        x_bytes = d_loc * n_local * 4
+        # X streamed once per chunked pass + rotated once (read+write)
+        bytes_acc = x_bytes * 3 + scale.chunks * d_loc * 4 * 2
+    else:
+        per_coord = (2 * scale.nnz * 3 + _BISECT_FLOPS)
+        flops = n_local * per_coord
+        x_bytes = n_local * scale.nnz * 8
+        bytes_acc = x_bytes * 3 + n_local * scale.nnz * 4 * 2  # v gather/scatter
+    # collectives (result-shape convention, per device): the chunk
+    # reductions of dv over the sync axes (f32: 4 B an element; int8
+    # two-phase: ~2), the bucket re-deal (an all-to-all of redeal_frac
+    # of the local shard) and the cross-pod int8 all-gather
+    sync_bytes = 2 if scale.compress_sync else 4
+    dv_len = scale.d if scale.kind == "sparse" else d_loc
+    syncing = [a for a in sync_axes if shape[a] > 1]
+    coll = scale.chunks * dv_len * sync_bytes * len(syncing)
+    pods = shape.get("pod", 1)
+    if W // pods > 1:
+        coll += (x_bytes + n_local * 4 * 2) * scale.redeal_frac
+    M = shape.get("model", 1)
+    if scale.kind == "sparse" and scale.feature_shard and M > 1:
+        # sharded-v solver: one working-set all-gather per bucket over
+        # 'model', (M, B, nnz) f32 landing on every lane
+        coll += (n_local // B) * M * B * scale.nnz * 4
+    if has_pod and pods > 1:
+        coll += (scale.d if scale.kind == "sparse" else d_loc) * 1 * pods
+    out = {"flops": float(flops), "bytes accessed": float(bytes_acc),
+           "coll": float(coll), "method": "analytic-closed-form"}
+    if streamed:
+        topo = planner.Topology(
+            backend="cuda", device_count=math.prod(shape.values()),
+            pods=pods, lanes=W // pods,
+            model_lanes=M if scale.feature_shard else 1)
+        sig = planner.WorkloadSignature(
+            n=scale.n, d=scale.d, nnz=scale.nnz,
+            sparse=scale.kind == "sparse", streamed=True)
+        plan = planner.SolverPlan(
+            solver="kernel", route="kernel", bucket=scale.bucket,
+            chunks=scale.chunks, nnz_multiple=8,
+            feature_shard=scale.feature_shard)
+        out["h2d bytes"] = planner.streamed_transfer_bytes(sig, topo, plan)
+    return out
+
+
+def glm_model_flops(scale: GLMScale, mesh) -> float:
+    """Useful work per device-epoch: one pass of coordinate updates, the
+    margin and v-update inner products, 4 d (dense) or 4 nnz (sparse)
+    per coordinate, divided over the workers."""
+    W = _worker_count(mesh, scale)
+    n_local = scale.n // W
+    if scale.kind == "sparse":
+        return float(n_local * 4 * scale.nnz)
+    d_loc = scale.d // mesh.shape.get("model", 1) \
+        if scale.feature_shard else scale.d
+    return float(n_local * 4 * d_loc)

@@ -26,7 +26,12 @@ Two meshes carry it here:
     bucket's partials or working sets over 'model'.
 
 `H2D_BW` and `HBM_BW` are the card's host-link and memory rates, defined
-once in `core.planner` (its streamed-plan score) and re-exported here.
+once in `core.planner` (its streamed-plan score) and re-exported here
+beside its peak arithmetic rates and its link rate (`PEAK_FLOPS`,
+`PEAK_FLOPS_F32`, `LINK_BW`), which the dry run's roofline divides by.
+`abstract_mesh` is a mesh's shape alone, with no device and no process
+behind it: the dry run's spec transforms and input specs partition
+over it.
 """
 from __future__ import annotations
 
@@ -43,6 +48,45 @@ from repro_torch.core.planner import H2D_BW, HBM_BW  # noqa: F401
 from repro_torch.device import resolve_device
 
 AXES = ("pod", "data", "model")
+
+#: Dense bf16 tensor-core peak of the H100 SXM (NVIDIA's data sheet, at
+#: its 700 W limit; the rate PERF.md's kernel bounds use), FLOP/s.
+PEAK_FLOPS = 989e12
+#: f32 peak of the same card (CUDA cores, no tensor cores), FLOP/s:
+#: every GLM kernel computes in f32, so a GLM record is bounded by it.
+PEAK_FLOPS_F32 = 67e12
+#: NVLink 4 of the H100 SXM, one direction, bytes/s (the data sheet's
+#: 900 GB/s is both directions summed).
+LINK_BW = 450e9
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractMesh:
+    """A mesh's axes and sizes, and nothing else: no device, no process
+    group.  `shape` maps each axis name to its size, in `axis_names`'
+    order."""
+    axis_names: tuple
+    sizes: tuple
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.sizes)
+
+
+def abstract_mesh(shape, axis_names) -> AbstractMesh:
+    """An `AbstractMesh` of these sizes over these axis names (the
+    reference's constructor's argument order)."""
+    shape, axis_names = tuple(int(s) for s in shape), tuple(axis_names)
+    if len(shape) != len(axis_names):
+        raise ValueError(f"{len(shape)} sizes for {len(axis_names)} axes")
+    for name, size in zip(axis_names, shape):
+        if size < 1:
+            raise ValueError(f"mesh axis {name}={size} must be >= 1")
+    return AbstractMesh(axis_names, shape)
 
 
 @dataclasses.dataclass(frozen=True)

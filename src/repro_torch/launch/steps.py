@@ -1,23 +1,151 @@
 """LM parameter initialisation, the train step and the prefill / decode
-steps.
+steps, and the spec transforms that lay them over a mesh.
 
-Mirrors the reference's `launch/steps.py` on one card: `make_opt_cfg`,
-`loss_fn` and `make_train_step` (autograd's gradient, then
-`optim.adamw.apply`), `make_prefill_step` and `make_decode_step`.  The
-reference's FSDP and ZeRO spec transforms (`fsdp_spec`,
-`model_param_specs(mesh=)`, `opt_state_specs`, `abstract_*`) have no
-counterpart: they only matter on a mesh (ROADMAP).  Parameters are
-drawn on their device from a seeded `torch.Generator` following each
-`ParamSpec`; they are not JAX's draws.
+Mirrors the reference's `launch/steps.py`: `make_opt_cfg`, `loss_fn`
+and `make_train_step` (autograd's gradient, then `optim.adamw.apply`),
+`make_prefill_step`, `make_decode_step` and `step_for` run on one card.
+The FSDP and ZeRO spec transforms (`fsdp_spec`, `model_param_specs`,
+`opt_state_specs`) and `abstract_params` / `abstract_opt_state` (each
+leaf's global shape, dtype, partition and per-device shard shape) are
+the reference's, on its stacked layout of the repeated blocks
+(`lm.param_specs(stacked=True)`); the dry run reads them.  Running a
+step on a mesh of cards (`train(mesh=)`, `serve(mesh=)`) waits for the
+runtime half of A16 step 4b (ROADMAP).  Parameters are drawn on their
+device from a seeded `torch.Generator` following each `ParamSpec`;
+they are not JAX's draws.
 """
 from __future__ import annotations
 
+import dataclasses
+import math
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.launch.specs import clean_pspec, shard_shape
 from repro_torch.models import lm
 from repro_torch.models.layers import materialize, tree_leaves, tree_map
 from repro_torch.optim import adamw
+
+# params below this size are never FSDP-sharded (norms, biases, routers)
+_FSDP_MIN_SIZE = 1 << 22
+
+
+def fsdp_spec(s, data_div: int, axes: tuple = ("data",)):
+    """Also split the largest replicated dim over `axes`.
+
+    Skips specs that already use any of `axes` (the experts' weights)
+    and small ones (norms, routers)."""
+    if math.prod(s.shape) < _FSDP_MIN_SIZE or len(s.shape) < 2:
+        return s
+    flat_axes = [a for e in s.pspec if e is not None
+                 for a in (e if isinstance(e, tuple) else (e,))]
+    if any(a in flat_axes for a in axes):
+        return s
+    entries = list(s.pspec) + [None] * (len(s.shape) - len(s.pspec))
+    cands = [i for i, (e, dim) in enumerate(zip(entries, s.shape))
+             if e is None and dim % data_div == 0 and dim >= data_div]
+    if not cands:
+        return s
+    best = max(cands, key=lambda i: s.shape[i])     # the first of equals
+    entries[best] = axes if len(axes) > 1 else axes[0]
+    return dataclasses.replace(s, pspec=tuple(entries))
+
+
+def _strip_model(s):
+    """The fsdp layout: 'model' out of every partition (no tensor
+    parallelism; the model axis is more batch)."""
+    def keep(e):
+        if e is None:
+            return None
+        if isinstance(e, (tuple, list)):
+            kept = tuple(a for a in e if a != "model")
+            return kept if kept else None
+        return None if e == "model" else e
+
+    return dataclasses.replace(s, pspec=tuple(keep(e) for e in s.pspec))
+
+
+def model_param_specs(cfg, mesh=None) -> dict:
+    """The parameters' specs (the stacked layout) with the config's ZeRO
+    policy applied.
+
+    zero3: big parameters also split over 'data' (gathered a layer at a
+           time: least memory, most collective bytes).
+    zero1: parameters stay tensor-parallel only; the optimizer's moments
+           alone split over 'data' (`opt_state_specs`).
+    The fsdp layout drops 'model' and splits over ('data', 'model')."""
+    specs = lm.param_specs(cfg, stacked=True)
+    if mesh is None:
+        return specs
+    if cfg.layout == "fsdp":
+        div = mesh.shape.get("data", 1) * mesh.shape.get("model", 1)
+        return tree_map(lambda s: fsdp_spec(_strip_model(s), div,
+                                            axes=("data", "model")), specs)
+    if cfg.zero_stage == "zero3":
+        data_div = mesh.shape.get("data", 1)
+        if data_div > 1:
+            specs = tree_map(lambda s: fsdp_spec(s, data_div), specs)
+    return specs
+
+
+def opt_state_specs(cfg, mesh) -> dict:
+    """The AdamW moments' specs (ZeRO-1: also split over 'data')."""
+    specs = model_param_specs(cfg, mesh)
+    if cfg.zero_stage == "zero1" and cfg.layout != "fsdp":
+        data_div = mesh.shape.get("data", 1) if mesh is not None else 1
+        if data_div > 1:
+            specs = tree_map(lambda s: fsdp_spec(s, data_div), specs)
+    return specs
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractArray:
+    """One array of a step's arguments, allocated nowhere: its global
+    shape and dtype, its partition on the mesh (cleaned of the axes the
+    mesh lacks) and the shape of one device's shard."""
+    shape: tuple
+    dtype: torch.dtype
+    partition: tuple
+    shard: tuple
+
+    @property
+    def shard_bytes(self) -> int:
+        return math.prod(self.shard) * self.dtype.itemsize
+
+
+def abstract_array(shape, dtype, partition, mesh) -> AbstractArray:
+    """The record of a (shape, dtype, partition) on `mesh` (None: one
+    device)."""
+    shape = tuple(shape)
+    if mesh is None:
+        return AbstractArray(shape, dtype, tuple(partition), shape)
+    part = clean_pspec(mesh, partition)
+    return AbstractArray(shape, dtype, part, shard_shape(shape, part, mesh))
+
+
+def abstract_params(cfg, mesh) -> dict:
+    return tree_map(lambda s: abstract_array(s.shape, s.dtype, s.pspec,
+                                             mesh),
+                    model_param_specs(cfg, mesh))
+
+
+def abstract_opt_state(cfg, mesh, opt_cfg: adamw.AdamWConfig):
+    """The AdamW state with the ZeRO-1/3 policy applied; an int8 moment
+    is a `QMoment` whose scale leaf (the last axis 1) keeps the
+    partition of the other axes."""
+    def mom(s):
+        if opt_cfg.state_dtype == "int8":
+            nd = len(s.shape)
+            return adamw.QMoment(
+                q=abstract_array(s.shape, torch.int8, s.pspec, mesh),
+                scale=abstract_array(
+                    tuple(s.shape[:-1]) + (1,), torch.float32,
+                    tuple(list(s.pspec)[:nd - 1] + [None]), mesh))
+        return abstract_array(s.shape, opt_cfg.state_dtype, s.pspec, mesh)
+
+    m = tree_map(mom, opt_state_specs(cfg, mesh))
+    return adamw.AdamWState(
+        step=abstract_array((), torch.int32, (), mesh), mu=m, nu=m)
 
 
 def init_params(cfg, seed: int = 0, device="cuda") -> dict:
@@ -96,6 +224,12 @@ def make_prefill_step(cfg):
         return logits[:, -1:], cache
 
     return prefill_step
+
+
+def step_for(cfg, kind: str):
+    """The step of a shape's kind: train, prefill or decode."""
+    return {"train": make_train_step, "prefill": make_prefill_step,
+            "decode": make_decode_step}[kind](cfg)
 
 
 def make_decode_step(cfg):

@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import ops as kops
+from repro_torch.kernels import costs, ops as kops
 from .layers import CacheSpec, ParamSpec, apply_rope, rmsnorm
 
 NEG_INF = -1e30
@@ -22,10 +22,13 @@ NEG_INF = -1e30
 
 def attention(q, k, v, *, q_positions, kind: str = "causal", window: int = 0,
               chunk: int = 512):
-    """Dispatch: the flash kernel for CUDA tensors, `blocked_attention`
-    for CPU tensors.  The port never pads kv, so neither takes the
+    """Dispatch: the flash kernel (B5) for CUDA tensors and on `meta`
+    (the dry run's trace: shapes only), and for CPU tensors while a step
+    is counted (`launch/counting.py` counts the card's program: B5's
+    plain version runs inside its wrapper); `blocked_attention` for CPU
+    tensors otherwise.  The port never pads kv, so neither takes the
     reference's `kv_len` mask."""
-    if q.is_cuda:
+    if q.is_cuda or q.device.type == "meta" or costs.counting():
         return kops.flash_attention(q, k, v, kind=kind, window=window)
     return blocked_attention(q, k, v, q_positions=q_positions, kind=kind,
                              window=window, chunk=chunk)
@@ -81,8 +84,10 @@ def blocked_attention(q, k, v, *, q_positions, kind: str = "causal",
 
 def gqa_specs(cfg) -> dict:
     d, H, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    return {"wq": ParamSpec((d, H * hd)), "wk": ParamSpec((d, Hkv * hd)),
-            "wv": ParamSpec((d, Hkv * hd)), "wo": ParamSpec((H * hd, d))}
+    return {"wq": ParamSpec((d, H * hd), pspec=(None, "model")),
+            "wk": ParamSpec((d, Hkv * hd), pspec=(None, "model")),
+            "wv": ParamSpec((d, Hkv * hd), pspec=(None, "model")),
+            "wo": ParamSpec((H * hd, d), pspec=("model", None))}
 
 
 def gqa_fwd(p: dict, x, cfg, *, positions, kind: str = "causal",
@@ -156,16 +161,18 @@ def mla_specs(cfg) -> dict:
     d, H = cfg.d_model, cfg.n_heads
     nd, rd, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     kvr, qr = cfg.kv_lora_rank, cfg.q_lora_rank
-    sp = {"wkv_a": ParamSpec((d, kvr + rd)),
-          "kv_norm": ParamSpec((kvr,), torch.float32, "ones"),
-          "wkv_b": ParamSpec((kvr, H * (nd + vd))),
-          "wo": ParamSpec((H * vd, d))}
+    sp = {"wkv_a": ParamSpec((d, kvr + rd), pspec=(None, None)),
+          "kv_norm": ParamSpec((kvr,), torch.float32, "ones",
+                               pspec=(None,)),
+          "wkv_b": ParamSpec((kvr, H * (nd + vd)), pspec=(None, "model")),
+          "wo": ParamSpec((H * vd, d), pspec=("model", None))}
     if qr:
-        sp["wq_a"] = ParamSpec((d, qr))
-        sp["q_norm"] = ParamSpec((qr,), torch.float32, "ones")
-        sp["wq_b"] = ParamSpec((qr, H * (nd + rd)))
+        sp["wq_a"] = ParamSpec((d, qr), pspec=(None, None))
+        sp["q_norm"] = ParamSpec((qr,), torch.float32, "ones",
+                                 pspec=(None,))
+        sp["wq_b"] = ParamSpec((qr, H * (nd + rd)), pspec=(None, "model"))
     else:
-        sp["wq"] = ParamSpec((d, H * (nd + rd)))
+        sp["wq"] = ParamSpec((d, H * (nd + rd)), pspec=(None, "model"))
     return sp
 
 

@@ -88,12 +88,17 @@ def tree_map_path(fn, tree, *rest, path: tuple = ()):
 
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
-    """Shape, dtype and initializer of one parameter (no sharding: the
-    port runs on one card)."""
+    """Shape, dtype and initializer of one parameter, and its partition
+    on a mesh: `pspec`, one entry a dimension, each None (replicated),
+    an axis name or a tuple of names (split over them, the first the
+    major), as `launch.glm.InputSpec.partition` reads it; () is
+    replicated.  The dry run's spec transforms (`launch/steps.py`) read
+    it; the one-card train and serve paths do not."""
     shape: tuple[int, ...]
     dtype: torch.dtype = torch.bfloat16
     init: str = "normal"       # normal | zeros | ones
     scale: float | None = None  # stddev; default 1/sqrt(fan_in)
+    pspec: tuple = ()
 
     def initializer(self, gen: torch.Generator,
                     device: torch.device) -> torch.Tensor:
@@ -147,10 +152,10 @@ def act_fn(name: str):
 def mlp_specs(d: int, ff: int, *, gated: bool = True,
               dtype=torch.bfloat16) -> dict:
     """SwiGLU (gated) or plain 2-layer MLP."""
-    sp = {"w_up": ParamSpec((d, ff), dtype),
-          "w_down": ParamSpec((ff, d), dtype)}
+    sp = {"w_up": ParamSpec((d, ff), dtype, pspec=(None, "model")),
+          "w_down": ParamSpec((ff, d), dtype, pspec=("model", None))}
     if gated:
-        sp["w_gate"] = ParamSpec((d, ff), dtype)
+        sp["w_gate"] = ParamSpec((d, ff), dtype, pspec=(None, "model"))
     return sp
 
 

@@ -31,6 +31,7 @@ padded vocab, an optional mask.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import torch
@@ -40,8 +41,8 @@ from torch.utils.checkpoint import checkpoint
 from . import attention as attn
 from . import moe as moe_lib
 from . import recurrent as rec
-from .layers import (ParamSpec, apply_rope, layernorm, mlp_apply, mlp_specs,
-                     rmsnorm)
+from .layers import (CacheSpec, ParamSpec, apply_rope, layernorm, mlp_apply,
+                     mlp_specs, rmsnorm, tree_map)
 
 
 def layer_layout(cfg) -> tuple[list[str], list[str], int, list[str]]:
@@ -59,10 +60,10 @@ def layer_layout(cfg) -> tuple[list[str], list[str], int, list[str]]:
 
 
 def _norm_specs(cfg) -> dict:
-    g = ParamSpec((cfg.d_model,), torch.float32, "ones")
+    g = ParamSpec((cfg.d_model,), torch.float32, "ones", pspec=(None,))
     if cfg.norm == "layernorm":
         return {"g": g, "b": ParamSpec((cfg.d_model,), torch.float32,
-                                       "zeros")}
+                                       "zeros", pspec=(None,))}
     return {"g": g}
 
 
@@ -232,34 +233,65 @@ def _prefill_cache(p, h, cfg, positions) -> dict:
     return {"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16)}
 
 
-def param_specs(cfg) -> dict:
+def _stack(tree, n_rep: int):
+    """The reference's stacked view of a repeated block's specs: each
+    leaf with a leading n_rep axis, replicated along it."""
+    def one(s):
+        if isinstance(s, ParamSpec):
+            return dataclasses.replace(s, shape=(n_rep,) + tuple(s.shape),
+                                       pspec=(None,) + tuple(s.pspec))
+        return CacheSpec((n_rep,) + tuple(s.shape), s.dtype)
+    return tree_map(one, tree)
+
+
+def param_specs(cfg, *, stacked: bool = False) -> dict:
+    """The parameters' specs.  The port's tree keeps a dict a superblock
+    under "blocks" (a list of n_rep); ``stacked=True`` gives the
+    reference's layout instead, one dict of leaves with a leading n_rep
+    axis (absent without repeats), which the dry run's spec transforms
+    partition as the reference's mesh program holds them."""
     head, pat, n_rep, tail = layer_layout(cfg)
     sp: dict[str, Any] = {
-        "embed": ParamSpec((cfg.padded_vocab, cfg.d_model), scale=0.02),
+        "embed": ParamSpec((cfg.padded_vocab, cfg.d_model), scale=0.02,
+                           pspec=(None, "model")),
         "final_norm": _norm_specs(cfg),
-        "lm_head": ParamSpec((cfg.d_model, cfg.padded_vocab), scale=0.02),
+        "lm_head": ParamSpec((cfg.d_model, cfg.padded_vocab), scale=0.02,
+                             pspec=(None, "model")),
     }
     if cfg.learned_pos:
-        sp["pos_embed"] = ParamSpec((cfg.max_seq, cfg.d_model), scale=0.02)
+        sp["pos_embed"] = ParamSpec((cfg.max_seq, cfg.d_model), scale=0.02,
+                                    pspec=(None, None))
     sp["head_blocks"] = [block_specs(cfg, k) for k in head]
-    sp["blocks"] = [{str(i): block_specs(cfg, k) for i, k in enumerate(pat)}
-                    for _ in range(n_rep)]
+    if stacked:
+        if n_rep:
+            sp["blocks"] = _stack({str(i): block_specs(cfg, k)
+                                   for i, k in enumerate(pat)}, n_rep)
+    else:
+        sp["blocks"] = [{str(i): block_specs(cfg, k)
+                         for i, k in enumerate(pat)} for _ in range(n_rep)]
     sp["tail_blocks"] = [block_specs(cfg, k) for k in tail]
     if cfg.is_encoder_decoder:
         sp["enc_blocks"] = [block_specs(cfg, "enc_attn")
                             for _ in range(cfg.n_enc_layers)]
         sp["enc_norm"] = _norm_specs(cfg)
         if cfg.learned_pos:
-            sp["enc_pos"] = ParamSpec((cfg.enc_seq, cfg.d_model), scale=0.02)
+            sp["enc_pos"] = ParamSpec((cfg.enc_seq, cfg.d_model),
+                                      scale=0.02, pspec=(None, None))
     return sp
 
 
-def cache_shapes(cfg, batch: int, max_seq: int) -> dict:
+def cache_shapes(cfg, batch: int, max_seq: int, *,
+                 stacked: bool = False) -> dict:
+    """The decode caches' specs; ``stacked=True``: "blocks" in the
+    reference's stacked layout (as `param_specs`; {} without repeats)."""
     head, pat, n_rep, tail = layer_layout(cfg)
+    per = {str(i): block_cache_shape(cfg, k, batch, max_seq)
+           for i, k in enumerate(pat)}
     return {
         "head": [block_cache_shape(cfg, k, batch, max_seq) for k in head],
-        "blocks": [{str(i): block_cache_shape(cfg, k, batch, max_seq)
-                    for i, k in enumerate(pat)} for _ in range(n_rep)],
+        "blocks": ((_stack(per, n_rep) if n_rep else {}) if stacked else
+                   [{str(i): block_cache_shape(cfg, k, batch, max_seq)
+                     for i, k in enumerate(pat)} for _ in range(n_rep)]),
         "tail": [block_cache_shape(cfg, k, batch, max_seq) for k in tail],
     }
 

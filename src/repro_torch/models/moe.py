@@ -26,16 +26,16 @@ from .layers import ParamSpec, act_fn
 def moe_specs(cfg) -> dict:
     d, E, ff = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
     sp = {
-        "router": ParamSpec((d, E), torch.float32),
-        "w_gate": ParamSpec((E, d, ff)),
-        "w_up": ParamSpec((E, d, ff)),
-        "w_down": ParamSpec((E, ff, d)),
+        "router": ParamSpec((d, E), torch.float32, pspec=(None, None)),
+        "w_gate": ParamSpec((E, d, ff), pspec=("data", "model", None)),
+        "w_up": ParamSpec((E, d, ff), pspec=("data", "model", None)),
+        "w_down": ParamSpec((E, ff, d), pspec=("data", None, "model")),
     }
     if cfg.n_shared_experts:
         sff = cfg.moe_d_ff * cfg.n_shared_experts
-        sp["shared"] = {"w_gate": ParamSpec((d, sff)),
-                        "w_up": ParamSpec((d, sff)),
-                        "w_down": ParamSpec((sff, d))}
+        sp["shared"] = {"w_gate": ParamSpec((d, sff), pspec=(None, "model")),
+                        "w_up": ParamSpec((d, sff), pspec=(None, "model")),
+                        "w_down": ParamSpec((sff, d), pspec=("model", None))}
     return sp
 
 

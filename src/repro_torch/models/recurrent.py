@@ -36,14 +36,17 @@ RG_C = 8.0
 def rglru_block_specs(cfg) -> dict:
     d, dr = cfg.d_model, cfg.rglru_dim
     return {
-        "w_x": ParamSpec((d, dr)),
-        "w_gate": ParamSpec((d, dr)),
-        "conv_w": ParamSpec((4, dr), torch.float32, scale=0.5),
-        "conv_b": ParamSpec((dr,), torch.float32, "zeros"),
-        "a_param": ParamSpec((dr,), torch.float32, "ones"),
-        "gate_a_w": ParamSpec((dr, dr)),
-        "gate_x_w": ParamSpec((dr, dr)),
-        "w_out": ParamSpec((dr, d)),
+        "w_x": ParamSpec((d, dr), pspec=(None, "model")),
+        "w_gate": ParamSpec((d, dr), pspec=(None, "model")),
+        "conv_w": ParamSpec((4, dr), torch.float32, scale=0.5,
+                            pspec=(None, "model")),
+        "conv_b": ParamSpec((dr,), torch.float32, "zeros",
+                            pspec=("model",)),
+        "a_param": ParamSpec((dr,), torch.float32, "ones",
+                             pspec=("model",)),
+        "gate_a_w": ParamSpec((dr, dr), pspec=(None, "model")),
+        "gate_x_w": ParamSpec((dr, dr), pspec=(None, "model")),
+        "w_out": ParamSpec((dr, d), pspec=("model", None)),
     }
 
 
@@ -120,12 +123,15 @@ def rglru_block_decode(p: dict, x, cache: dict, cfg):
 
 def mlstm_specs(cfg) -> dict:
     d, H = cfg.d_model, cfg.n_heads
-    return {"wq": ParamSpec((d, d)), "wk": ParamSpec((d, d)),
-            "wv": ParamSpec((d, d)),
-            "w_i": ParamSpec((d, H), torch.float32),
-            "w_f": ParamSpec((d, H), torch.float32),
-            "w_o": ParamSpec((d, d)), "wo": ParamSpec((d, d)),
-            "ln_g": ParamSpec((d,), torch.float32, "ones")}
+    return {"wq": ParamSpec((d, d), pspec=(None, "model")),
+            "wk": ParamSpec((d, d), pspec=(None, "model")),
+            "wv": ParamSpec((d, d), pspec=(None, "model")),
+            "w_i": ParamSpec((d, H), torch.float32, pspec=(None, None)),
+            "w_f": ParamSpec((d, H), torch.float32, pspec=(None, None)),
+            "w_o": ParamSpec((d, d), pspec=(None, "model")),
+            "wo": ParamSpec((d, d), pspec=("model", None)),
+            "ln_g": ParamSpec((d,), torch.float32, "ones",
+                              pspec=("model",))}
 
 
 def _mlstm_heads(p, x, cfg):
@@ -243,11 +249,12 @@ def mlstm_decode(p: dict, x, cache: dict, cfg):
 
 def slstm_specs(cfg) -> dict:
     d = cfg.d_model
-    return {"w_z": ParamSpec((d, d)),
-            "w_i": ParamSpec((d, d), torch.float32),
-            "w_f": ParamSpec((d, d), torch.float32),
-            "w_o": ParamSpec((d, d)), "r_z": ParamSpec((d, d)),
-            "wo": ParamSpec((d, d))}
+    return {"w_z": ParamSpec((d, d), pspec=(None, "model")),
+            "w_i": ParamSpec((d, d), torch.float32, pspec=(None, "model")),
+            "w_f": ParamSpec((d, d), torch.float32, pspec=(None, "model")),
+            "w_o": ParamSpec((d, d), pspec=(None, "model")),
+            "r_z": ParamSpec((d, d), pspec=(None, "model")),
+            "wo": ParamSpec((d, d), pspec=("model", None))}
 
 
 def slstm_cache_shape(cfg, batch: int) -> dict:

@@ -5,8 +5,9 @@ The state's dtype is the config's `opt_dtype` (`launch.steps.
 make_opt_cfg`): f32 for fidelity, bf16 to halve the moments' bytes, or
 "int8", 8-bit-Adam-style moments with one f32 scale per row of the last
 axis (`QMoment`), requantised from fresh f32 values every step so that
-quantisation noise does not accumulate beyond one step.  The reference's
-ZeRO state specs have no counterpart: the port trains on one card.
+quantisation noise does not accumulate beyond one step.  The ZeRO
+state specs (how a mesh would split the moments) are the dry run's,
+`launch/steps.py` `opt_state_specs`; the port trains on one card.
 
 Three places where the numbers depend on how the reference writes it,
 kept as it writes them:

@@ -132,15 +132,38 @@ def test_attention_function_routes_cpu_to_plain(monkeypatch):
     assert o_inf.grad_fn is None and torch.equal(o_inf, o.detach())
 
 
-def test_bwd_refuses_other_devices():
+class _OtherDevice(torch.Tensor):
+    """A CPU tensor that says it lives on a device the port has no route
+    for (`meta` is the dry run's shape-only route)."""
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
+def test_bwd_refuses_other_devices(monkeypatch):
     """No fallback: off the CPU the backward launches its kernel or
-    raises; it never runs the plain version."""
-    q = torch.empty((1, 4, 2, 8), device="meta")
+    raises; it never runs the plain version (on `meta` it returns empty
+    gradients and runs nothing)."""
+    def refuse(*a, **k):
+        raise AssertionError("the plain backward ran")
+    monkeypatch.setattr(fa, "flash_attention_bwd_plain", refuse)
+    monkeypatch.setattr(rg, "rglru_bwd_plain", refuse)
+    q = torch.empty((1, 4, 2, 8)).as_subclass(_OtherDevice)
     with pytest.raises(ValueError, match="unsupported device"):
         fa.flash_attention_bwd(q, q[:, :, :1], q[:, :, :1], q, q)
-    x = torch.empty((1, 4, 8), device="meta")
+    x = torch.empty((1, 4, 8)).as_subclass(_OtherDevice)
     with pytest.raises(ValueError, match="unsupported device"):
         rg.rglru_bwd(x, x[0, 0], x, x, x[:, 0], x, x[:, 0])
+    q = torch.empty((1, 4, 2, 8), device="meta")
+    dq, dk, dv = fa.flash_attention_bwd(q.float(), q[:, :, :1].float(),
+                                        q[:, :, :1].float(), q.float(),
+                                        q.float())
+    assert (dq.device.type, dq.shape, dk.shape) == ("meta", q.shape,
+                                                    (1, 4, 1, 8))
+    x = torch.empty((1, 4, 8), device="meta")
+    grads = rg.rglru_bwd(x, x[0, 0], x, x, x[:, 0], x, x[:, 0])
+    assert [g.shape for g in grads] == [x.shape, (8,), x.shape, x.shape,
+                                        (1, 8)]
 
 
 def test_rglru_bwd_plain_matches_reference_vjp():

@@ -165,7 +165,18 @@ def test_mask_kinds():
         fa.mask(2, 2, kind="sliding", window=1)
 
 
+class _OtherDevice(torch.Tensor):
+    """A CPU tensor that says it lives on a device the port has no route
+    for (`meta` is the dry run's shape-only route)."""
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
 def test_wrapper_rejects_other_devices():
-    q = torch.zeros((1, 4, 2, 8), device="meta")
+    q = torch.zeros((1, 4, 2, 8)).as_subclass(_OtherDevice)
     with pytest.raises(ValueError, match="unsupported device"):
         fa.flash_attention_kernel(q, q, q)
+    m = torch.zeros((1, 4, 2, 8), device="meta")
+    o = fa.flash_attention_kernel(m, m, m)
+    assert (o.device.type, o.shape) == ("meta", m.shape)

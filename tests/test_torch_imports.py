@@ -90,6 +90,13 @@ def test_new_modules_are_checked():
             "src/repro_torch/analysis/trace.py",
             "src/repro_torch/analysis/selftest.py",
             "src/repro_torch/analysis/runner.py",
+            "src/repro_torch/launch/specs.py",
+            "src/repro_torch/launch/counting.py",
+            "src/repro_torch/launch/cost_analysis.py",
+            "src/repro_torch/launch/variants.py",
+            "src/repro_torch/launch/dryrun.py",
+            "src/repro_torch/sharding/__init__.py",
+            "src/repro_torch/kernels/costs.py",
             "tools/mesh_dist_rank.py", "tools/audit_torch.py"} <= names
 
 

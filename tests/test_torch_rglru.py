@@ -195,10 +195,22 @@ def test_decode_recurrence_equals_prefill():
                                rtol=1e-2, atol=1e-2)
 
 
+class _OtherDevice(torch.Tensor):
+    """A CPU tensor that says it lives on a device the port has no route
+    for (`meta` is the dry run's shape-only route)."""
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
 def test_wrapper_rejects_other_devices():
-    x = torch.zeros((1, 4, 8), device="meta")
+    x = torch.zeros((1, 4, 8)).as_subclass(_OtherDevice)
     with pytest.raises(ValueError, match="unsupported device"):
         rglru.rglru_kernel(x, torch.zeros(8), x, x, torch.zeros((1, 8)))
+    m = torch.zeros((1, 4, 8), device="meta")
+    h, h_last = rglru.rglru_kernel(m, torch.zeros(8, device="meta"), m, m,
+                                   torch.zeros((1, 8), device="meta"))
+    assert (h.device.type, h.shape, h_last.shape) == ("meta", m.shape, (1, 8))
 
 
 def _two_pass_cache(p, h, cfg):
