@@ -134,7 +134,9 @@ class DistMesh:
     ``rank`` is this process's rank in the world group; its coordinates
     are `rank_coords` (row-major).  ``groups`` maps each axis of size > 1
     to this rank's group along it (the ranks that share its other two
-    coordinates, in axis order).  ``backend`` is the process group's;
+    coordinates, in axis order), and, when all three axes are larger
+    than 1, each pair of axes to the group of the ranks that share the
+    third coordinate.  ``backend`` is the process group's;
     under "gloo" on a CUDA device the collectives stage through host
     memory (``stages``).
     """
@@ -165,12 +167,47 @@ class DistMesh:
         """Whether collectives copy through host memory (gloo on CUDA)."""
         return self.backend == "gloo" and self.device.type == "cuda"
 
-    def group(self, axis: Optional[str]):
-        """This rank's group along `axis` (None: the world)."""
-        return None if axis is None else self.groups[axis]
+    def live_axes(self, axes) -> tuple:
+        """`axes` (None: every axis; a name or a tuple of names) as the
+        tuple of those of size > 1, in mesh order."""
+        if axes is None:
+            axes = AXES
+        elif isinstance(axes, str):
+            axes = (axes,)
+        unknown = set(axes) - set(AXES)
+        if unknown:
+            raise ValueError(f"unknown mesh axes {sorted(unknown)}")
+        return tuple(a for a in AXES if a in axes and self.shape[a] > 1)
 
-    def group_size(self, axis: Optional[str]) -> int:
-        return self.size if axis is None else self.shape[axis]
+    def group(self, axis):
+        """This rank's group along `axis`: an axis name, a tuple of
+        names (their joint group, its ranks in mesh order, so the first
+        name is the major) or None (the world).  Axes of size 1 add
+        nothing; a group of one rank is an error."""
+        if axis is None:
+            return None
+        if isinstance(axis, str):
+            return self.groups[axis]
+        live = self.live_axes(axis)
+        if not live:
+            raise ValueError(f"axes {axis!r} hold one rank: no group")
+        if len(live) == 1:
+            return self.groups[live[0]]
+        return None if live == self.live_axes(None) else self.groups[live]
+
+    def group_size(self, axis) -> int:
+        if axis is None:
+            return self.size
+        return math.prod(self.shape[a] for a in self.live_axes(axis))
+
+    def group_index(self, axis) -> int:
+        """This rank's index in its group along `axis` (mesh order: the
+        last axis fastest)."""
+        c = dict(zip(AXES, self.coords))
+        idx = 0
+        for a in self.live_axes(axis):
+            idx = idx * self.shape[a] + c[a]
+        return idx
 
 
 def _env_int(name: str, given: Optional[int]) -> int:
@@ -245,6 +282,17 @@ def make_dist_mesh(*, pod: int = 1, data: int = 1, model: int = 1,
             g = dist.new_group(members)
             if rank in members:
                 groups[axis] = g
+    if all(shape[a] > 1 for a in AXES):
+        # the pairs' joint groups (with one axis of size 1 a pair is the
+        # world): the ranks that share the third coordinate
+        for pair in ((a, b) for i, a in enumerate(AXES) for b in AXES[i + 1:]):
+            third = AXES.index(next(a for a in AXES if a not in pair))
+            for c in range(shape[AXES[third]]):
+                members = [r for r in range(world_size)
+                           if rank_coords(r, shape)[third] == c]
+                g = dist.new_group(members)
+                if rank in members:
+                    groups[pair] = g
     return DistMesh(pod, data, model, rank, dev, backend, groups)
 
 

@@ -21,6 +21,7 @@ versions run.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -156,30 +157,42 @@ def widen_cache(cache: dict, cfg, batch: int, max_seq: int) -> dict:
 
 @torch.inference_mode()
 def generate(params, tokens, cfg, gen: int, *, stats: dict | None = None,
-             enc_out=None):
+             enc_out=None, mesh=None):
     """Prefill `tokens` (B, P), widen the caches to P + gen, then take
     gen - 1 greedy decode steps.  `enc_out`: an encoder-decoder's
     encoder output (`lm.encoder_fwd`).  Returns the (B, gen) generated
     ids; with `stats`, writes into it the prefill and decode seconds (the
     host clock around work that ends in a device synchronize) and the
     largest |logit| of the prefill (inf or NaN if any logit is not
-    finite)."""
+    finite).  On a process mesh (`mesh`, every rank calling this) the
+    parameters and `tokens` are this rank's shards and rows, the caches
+    its own, and the ids its rows'; with `stats`, "prefill_logits" is
+    this rank's slice of the prefill's last-position logits."""
     dev = tokens.device
     B, P = tokens.shape
+    decode = steps_lib.make_decode_step(cfg, mesh=mesh)
+    lay = None if mesh is None else steps_lib.layout_for(cfg, mesh)
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = lm.forward(params, tokens, cfg, mode="prefill",
-                               enc_out=enc_out)
-    cache = widen_cache(cache, cfg, B, P + gen)
-    tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    if lay is None:
+        logits, cache = lm.forward(params, tokens, cfg, mode="prefill",
+                                   enc_out=enc_out)
+        cache = widen_cache(cache, cfg, B, P + gen)
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    else:
+        logits, cache = steps_lib.make_prefill_step(cfg, mesh=mesh)(
+            params, {"tokens": tokens})
+        tok = lay.argmax(logits[:, -1])[:, None]
+        cache = widen_cache(cache, lay.cache_cfg(), B, P + gen)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
     if stats is not None:       # NaN propagates through amax / amin
         stats["prefill_logits_absmax"] = float(torch.maximum(
             logits.amax().float().abs(), logits.amin().float().abs()))
+        if lay is not None:
+            stats["prefill_logits"] = logits[:, -1].float().cpu()
     del logits
 
-    decode = steps_lib.make_decode_step(cfg)
     out = [tok]
     t0 = time.perf_counter()
     for i in range(gen - 1):
@@ -198,7 +211,7 @@ def generate(params, tokens, cfg, gen: int, *, stats: dict | None = None,
 @torch.inference_mode()
 def serve(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
           device="cuda", verbose: bool = True,
-          stats: dict | None = None):
+          stats: dict | None = None, mesh=None):
     """Random weights of `cfg` (seeded), a random prompt batch
     (`np.random.default_rng(seed)`, as the reference draws it), prefill,
     then greedy decode.  An audio config's frames are drawn first from
@@ -208,11 +221,21 @@ def serve(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
     passes no patches.  Returns the (batch, gen) generated token ids.
     `stats`, when given, receives setup / encode (audio) / prefill /
     decode seconds, decode tokens per second and the parameters'
-    bytes."""
-    dev = resolve_device(device)
+    bytes.
+
+    With `mesh` (a `DistMesh`; every rank calls this) each rank holds
+    its shards of the same weights and its rows of the same prompts, and
+    serving runs tensor-parallel over 'model' whatever `cfg.layout` says
+    (the reference's serving specs put the batch over (pod, data));
+    every rank returns the whole (batch, gen) ids, and `stats` holds
+    this rank's seconds and bytes (decode tok/s counts its rows)."""
+    dev = resolve_device(device) if mesh is None else mesh.device
+    if mesh is not None and cfg.layout != "tp":
+        cfg = dataclasses.replace(cfg, layout="tp")
     _sync(dev)
     t0 = time.perf_counter()
-    params = steps_lib.init_params(cfg, seed, dev)
+    params = steps_lib.init_params(cfg, seed, dev) if mesh is None else \
+        steps_lib.init_params(cfg, seed, dev, mesh=mesh)
     _sync(dev)
     t_setup = time.perf_counter() - t0
     rng = np.random.default_rng(seed)
@@ -227,7 +250,12 @@ def serve(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
         st["encode_s"] = time.perf_counter() - t0
     tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (batch, prompt_len)),
                              dtype=torch.int64, device=dev)
-    ids = generate(params, tokens, cfg, gen, stats=st, enc_out=enc_out)
+    if mesh is None:
+        ids = generate(params, tokens, cfg, gen, stats=st, enc_out=enc_out)
+    else:
+        lay = steps_lib.layout_for(cfg, mesh)
+        ids = lay.batch_gather(generate(params, lay.batch_slice(tokens), cfg,
+                                        gen, stats=st, mesh=mesh))
     st.update(setup_s=t_setup, param_bytes=sum(
         t.numel() * t.element_size() for t in tree_leaves(params)))
     if verbose:

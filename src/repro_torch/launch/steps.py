@@ -1,23 +1,28 @@
 """LM parameter initialisation, the train step and the prefill / decode
-steps, and the spec transforms that lay them over a mesh.
+steps, on one card or on a process mesh, and the spec transforms that
+lay them over a mesh.
 
 Mirrors the reference's `launch/steps.py`: `make_opt_cfg`, `loss_fn`
 and `make_train_step` (autograd's gradient, then `optim.adamw.apply`),
-`make_prefill_step`, `make_decode_step` and `step_for` run on one card.
-The FSDP and ZeRO spec transforms (`fsdp_spec`, `model_param_specs`,
+`make_prefill_step`, `make_decode_step` and `step_for`.  The FSDP and
+ZeRO spec transforms (`fsdp_spec`, `model_param_specs`,
 `opt_state_specs`) and `abstract_params` / `abstract_opt_state` (each
 leaf's global shape, dtype, partition and per-device shard shape) are
 the reference's, on its stacked layout of the repeated blocks
-(`lm.param_specs(stacked=True)`); the dry run reads them.  Running a
-step on a mesh of cards (`train(mesh=)`, `serve(mesh=)`) waits for the
-runtime half of A16 step 4b (ROADMAP).  Parameters are drawn on their
-device from a seeded `torch.Generator` following each `ParamSpec`;
-they are not JAX's draws.
+(`lm.param_specs(stacked=True)`); the dry run reads them, and so does a
+step on a process mesh (`mesh=`, a `launch.mesh.DistMesh`): each rank
+holds its shards of the parameters, gradients and moments as those
+specs split them (`sharding.layout.LMLayout`), and the arithmetic is the
+one-card step's.  Parameters are drawn on their device from a seeded
+`torch.Generator` following each `ParamSpec` (on a mesh each rank keeps
+its slice of the same draw); they are not JAX's draws.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
+
 import torch
 
 from repro_torch.device import resolve_device
@@ -148,13 +153,48 @@ def abstract_opt_state(cfg, mesh, opt_cfg: adamw.AdamWConfig):
         step=abstract_array((), torch.int32, (), mesh), mu=m, nu=m)
 
 
-def init_params(cfg, seed: int = 0, device="cuda") -> dict:
+_LAYOUTS: dict = {}
+
+
+def layout_for(cfg, mesh):
+    """`cfg`'s `sharding.layout.LMLayout` on the process mesh `mesh`
+    (one per (config, mesh))."""
+    from repro_torch.sharding.layout import LMLayout
+    key = (cfg, id(mesh))
+    if key not in _LAYOUTS or _LAYOUTS[key].mesh is not mesh:
+        _LAYOUTS[key] = LMLayout(cfg, mesh)
+    return _LAYOUTS[key]
+
+
+def _on(lay):
+    """The layout registered for a step's body (nothing on one card)."""
+    from repro_torch import sharding
+    return contextlib.nullcontext() if lay is None \
+        else sharding.use_layout(lay)
+
+
+def init_params(cfg, seed: int = 0, device="cuda", mesh=None) -> dict:
     """Random parameters of `cfg` on `device` (the card unless the
-    caller asks for the CPU)."""
-    dev = resolve_device(device)
+    caller asks for the CPU).  With `mesh` (a `DistMesh`; its device),
+    this rank's shards: each leaf drawn whole in the one-card order, a
+    leaf at a time, and this rank's slice kept, so the shards are
+    `torch.equal` to the slices of the one-card draw."""
+    dev = resolve_device(device) if mesh is None else mesh.device
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    return materialize(lm.param_specs(cfg), gen, dev)
+    if mesh is None:
+        return materialize(lm.param_specs(cfg), gen, dev)
+    lay = layout_for(cfg, mesh)
+    return tree_map(lambda s, pl: lay.local(s.initializer(gen, dev), pl),
+                    lm.param_specs(cfg), lay.params)
+
+
+def init_opt_state(cfg, params, opt_cfg: adamw.AdamWConfig, mesh=None):
+    """AdamW's zero state for `params` (on a mesh, on this rank's update
+    shards: ZeRO-1 splits them over 'data')."""
+    if mesh is None:
+        return adamw.init(params, opt_cfg)
+    return adamw.init(layout_for(cfg, mesh).update_views(params), opt_cfg)
 
 
 def _full_forward(params, batch, cfg, mode):
@@ -187,40 +227,94 @@ def loss_fn(params, batch, cfg):
     return lm.lm_loss(logits, batch["labels"])
 
 
-def make_train_step(cfg, opt_cfg: adamw.AdamWConfig | None = None):
+def _loss_and_grads(params, batch, cfg, lay):
+    """(loss, the gradient of every leaf of `params`) by autograd.  On a
+    mesh the loss is this rank's part (its tokens' losses over the
+    global token count) and the gradients are its parts, not yet summed
+    over the ranks."""
+    leaves = tree_leaves(params)
+    live = [p.detach().requires_grad_(True) for p in leaves]
+    it = iter(live)
+    tracked = tree_map(lambda _p: next(it), params)
+    with _on(lay):
+        if lay is None:
+            loss = loss_fn(tracked, batch, cfg)
+        else:
+            logits, _ = lm.forward(tracked, batch["tokens"], cfg,
+                                   mode="train")
+            loss = lay.loss(logits, batch["labels"])
+            del logits
+        grads = torch.autograd.grad(loss, live, allow_unused=True)
+    # a leaf the loss never reads gets zeros, as jax.grad gives it
+    it = iter(torch.zeros_like(p) if g is None else g
+              for p, g in zip(live, grads))
+    return loss.detach(), tree_map(lambda _p: next(it), params)
+
+
+def make_grad_step(cfg, mesh=None):
+    """(params, batch) -> (loss, grads): the mean next-token loss and its
+    gradient with respect to every parameter (on a mesh, the global
+    loss, the same on every rank, and the gradient of each of this
+    rank's parameter shards)."""
+    lay = None if mesh is None else layout_for(cfg, mesh)
+
+    def grad_step(params, batch):
+        loss, grads = _loss_and_grads(params, batch, cfg, lay)
+        if lay is None:
+            return loss, grads
+        return lay.batch_sum(loss), lay.sync_grads(grads, zero=False)
+
+    return grad_step
+
+
+def make_train_step(cfg, opt_cfg: adamw.AdamWConfig | None = None,
+                    mesh=None):
     """(params, opt_state, batch) -> (params, opt_state, {"loss",
     "grad_norm"}): the loss's gradient with respect to every parameter
     by autograd (on the card attention and RG-LRU run B5 and B6 forward
     and their backward kernels), then one AdamW step, which writes the
     parameters and moments IN PLACE and returns them (the reference's
     train loop donates both to its jitted step): a step holds one copy
-    of the optimizer state."""
+    of the optimizer state.
+
+    With `mesh` (a `DistMesh`), every argument is this rank's shards
+    (`init_params(mesh=)`, `init_opt_state(mesh=)`, the batch's rows of
+    `sharding.layout.LMLayout.batch_slice`): the gradients are summed
+    over the ranks in rank order (reduce-scattered over 'data' under
+    ZeRO-1), AdamW updates this rank's shards, and "loss" and
+    "grad_norm" are the global ones, the same bits on every rank."""
     opt_cfg = opt_cfg or make_opt_cfg(cfg)
+    lay = None if mesh is None else layout_for(cfg, mesh)
 
     def train_step(params, opt_state, batch):
-        leaves = tree_leaves(params)
-        live = [p.detach().requires_grad_(True) for p in leaves]
-        it = iter(live)
-        tracked = tree_map(lambda _p: next(it), params)
-        loss = loss_fn(tracked, batch, cfg)
-        grads = torch.autograd.grad(loss, live, allow_unused=True)
-        # a leaf the loss never reads gets zeros, as jax.grad gives it
-        it = iter(torch.zeros_like(p) if g is None else g
-                  for p, g in zip(live, grads))
-        grads = tree_map(lambda _p: next(it), params)
-        params, opt_state, metrics = adamw.apply(params, grads, opt_state,
-                                                 opt_cfg)
-        metrics["loss"] = loss.detach()
+        loss, grads = _loss_and_grads(params, batch, cfg, lay)
+        if lay is None:
+            params, opt_state, metrics = adamw.apply(params, grads,
+                                                     opt_state, opt_cfg)
+            metrics["loss"] = loss
+            return params, opt_state, metrics
+        grads = lay.sync_grads(grads)
+        views = lay.update_views(params)
+        _, opt_state, metrics = adamw.apply(views, grads, opt_state,
+                                            opt_cfg, shards=lay)
+        del grads
+        lay.zero_gather(params, views)
+        metrics["loss"] = lay.batch_sum(loss)
         return params, opt_state, metrics
 
     return train_step
 
 
-def make_prefill_step(cfg):
+def make_prefill_step(cfg, mesh=None):
     """(params, {"tokens": (B, S)[, "frames" | "patches"]}) ->
-    (last-position logits (B, 1, V), caches)."""
+    (last-position logits (B, 1, V), caches).  On a mesh: this rank's
+    rows, its vocab slice under tensor parallelism, and its caches
+    (its kv heads)."""
+    lay = None if mesh is None else layout_for(cfg, mesh)
+
     def prefill_step(params, batch):
-        logits, cache = _full_forward(params, batch, cfg, "prefill")
+        with _on(lay):
+            logits, cache = _full_forward(params, batch, cfg, "prefill")
         return logits[:, -1:], cache
 
     return prefill_step
@@ -232,13 +326,21 @@ def step_for(cfg, kind: str):
             "decode": make_decode_step}[kind](cfg)
 
 
-def make_decode_step(cfg):
+def make_decode_step(cfg, mesh=None):
     """(params, {"tokens": (B, 1), "cache", "pos": int}) -> (greedy next
-    token (B,), caches).  The attention caches are written in place."""
+    token (B,), caches).  The attention caches are written in place.
+    On a mesh the greedy token is taken over the vocab-parallel logits
+    (`LMLayout.argmax`: `torch.argmax`'s rule over the whole vocab)."""
+    lay = None if mesh is None else layout_for(cfg, mesh)
+
     def decode_step(params, batch):
-        logits, cache = lm.forward(params, batch["tokens"], cfg,
-                                   mode="decode", cache=batch["cache"],
-                                   pos=batch["pos"])
-        return torch.argmax(logits[:, -1], dim=-1), cache
+        with _on(lay):
+            logits, cache = lm.forward(params, batch["tokens"], cfg,
+                                       mode="decode", cache=batch["cache"],
+                                       pos=batch["pos"])
+            last = logits[:, -1]
+            tok = (torch.argmax(last, dim=-1) if lay is None
+                   else lay.argmax(last))
+        return tok, cache
 
     return decode_step

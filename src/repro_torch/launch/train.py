@@ -1,5 +1,7 @@
-"""End-to-end LM training on one device: the reference's
-`launch/train.py` with `device=` in place of its mesh.
+"""End-to-end LM training on one device or on a process mesh: the
+reference's `launch/train.py` (`device=` picks the card or the CPU;
+`mesh=` a `launch.mesh.DistMesh`, each process one rank, as
+`tools/lm_mesh_rank.py` runs it).
 
     python -m repro_torch.launch.train --arch smollm-360m --steps 20 \\
         --batch 4 --seq 2048 --device cuda
@@ -15,6 +17,11 @@
     because the data stream is indexed by step and the step is
     deterministic (on the card too: see `models.lm._embed` and the
     backward kernels)
+
+  * on a mesh: each rank draws the one-card batch and keeps its rows;
+    a checkpoint is the one-card format, its shards gathered and saved
+    by rank 0, and a restore slices it by the specs of the mesh (or the
+    card) that loads it
 
 The parameters are the port's seeded draws, not the reference's.
 """
@@ -56,25 +63,42 @@ def batch_at(cfg, batch: int, seq: int, step: int, seed: int = 0,
 
 def train(cfg, *, steps: int, batch: int, seq: int, lr: float = 3e-4,
           ckpt_dir: str | None = None, ckpt_every: int = 0, seed: int = 0,
-          verbose: bool = True, device="cuda", history: list | None = None):
+          verbose: bool = True, device="cuda", history: list | None = None,
+          mesh=None):
     """Train `steps` steps from the latest checkpoint in `ckpt_dir` (or
     from the seeded initialisation); save every `ckpt_every` steps.
     Returns (params, opt_state, losses of the steps run here).  Each
     step's {"step", "loss", "grad_norm", "seconds"} (host clock, ending
-    in the loss's read) is appended to `history` when given."""
-    dev = resolve_device(device)
+    in the loss's read) is appended to `history` when given.
+
+    With `mesh` (a `DistMesh`, on its device) every rank calls this:
+    it returns this rank's shards, and the global losses (the same on
+    every rank).  `batch` is the global batch."""
+    dev = resolve_device(device) if mesh is None else mesh.device
     opt_cfg = dataclasses.replace(steps_lib.make_opt_cfg(cfg), lr=lr)
-    params = steps_lib.init_params(cfg, seed, dev)
-    opt_state = adamw.init(params, opt_cfg)
-    step_fn = steps_lib.make_train_step(cfg, opt_cfg)
+    if mesh is None:
+        params = steps_lib.init_params(cfg, seed, dev)
+        opt_state = adamw.init(params, opt_cfg)
+        lay = None
+    else:
+        params = steps_lib.init_params(cfg, seed, dev, mesh=mesh)
+        opt_state = steps_lib.init_opt_state(cfg, params, opt_cfg, mesh)
+        lay = steps_lib.layout_for(cfg, mesh)
+    step_fn = steps_lib.make_train_step(cfg, opt_cfg, mesh=mesh)
 
     start = 0
     mgr = None
     if ckpt_dir:
         mgr = CheckpointManager(ckpt_dir)
         if mgr.latest_step() is not None:
-            (params, opt_state), meta = mgr.restore((params, opt_state),
-                                                    device=dev)
+            if lay is None:
+                (params, opt_state), meta = mgr.restore((params, opt_state),
+                                                        device=dev)
+            else:
+                whole, meta = mgr.restore(
+                    lay.state_targets(params, opt_state), device="cpu")
+                params, opt_state = lay.state_local(*whole, dev)
+                del whole
             start = int(meta["step"])
             if verbose:
                 print(f"resumed from step {start}")
@@ -84,6 +108,8 @@ def train(cfg, *, steps: int, batch: int, seq: int, lr: float = 3e-4,
     for s in range(start, steps):
         ts = time.perf_counter()
         b = batch_at(cfg, batch, seq, s, seed, dev)
+        if lay is not None:
+            b = {k: lay.batch_slice(v) for k, v in b.items()}
         params, opt_state, metrics = step_fn(params, opt_state, b)
         losses.append(float(metrics["loss"]))
         if history is not None:
@@ -95,9 +121,17 @@ def train(cfg, *, steps: int, batch: int, seq: int, lr: float = 3e-4,
                   f"gnorm {float(metrics['grad_norm']):.3f} "
                   f"({time.perf_counter() - t0:.1f}s)")
         if mgr and ckpt_every and (s + 1) % ckpt_every == 0:
-            mgr.save(s + 1, (params, opt_state), meta={"step": s + 1})
+            if lay is None:
+                mgr.save(s + 1, (params, opt_state), meta={"step": s + 1})
+            else:                       # the one-card format, by rank 0
+                whole = lay.state_full(params, opt_state)
+                if mesh.rank == 0:
+                    mgr.save(s + 1, whole, meta={"step": s + 1})
+                del whole
     if mgr:
         mgr.wait()
+        if lay is not None:             # every rank sees the files
+            lay.barrier()
     return params, opt_state, losses
 
 

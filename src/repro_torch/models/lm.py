@@ -38,6 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import sharding
 from . import attention as attn
 from . import moe as moe_lib
 from . import recurrent as rec
@@ -143,24 +144,28 @@ def apply_block(p: dict, x, cfg, kind: str, *, positions=None,
             fwd = rec.mlstm_fwd if kind == "mlstm" else rec.slstm_fwd
             r, new_cache = fwd(p["core"], h, cfg)
         return x + r, new_cache
+    lay = sharding.get_layout()
     if kind in _ATTN_KINDS:
         akind = _attn_kind(cfg, kind)
         mla = cfg.attention == "mla"
         self_cache = cache["self"] if kind == "xattn" and cache else cache
+        pa, acfg = p["attn"], cfg
+        if lay is not None:             # this rank's heads
+            pa, acfg = lay.attn_params(pa)
+            h = lay.col_in(h)
         if mode == "decode" and mla:
-            a, new_cache = attn.mla_decode(p["attn"], h, self_cache, cfg,
-                                           pos=pos)
+            a, new_cache = attn.mla_decode(pa, h, self_cache, acfg, pos=pos)
         elif mode == "decode":
-            a, new_cache = attn.gqa_decode(p["attn"], h, self_cache, cfg,
+            a, new_cache = attn.gqa_decode(pa, h, self_cache, acfg,
                                            pos=pos, kind=akind,
                                            use_rope=cfg.use_rope)
         else:
-            a = (attn.mla_fwd(p["attn"], h, cfg, positions=positions) if mla
-                 else attn.gqa_fwd(p["attn"], h, cfg, positions=positions,
+            a = (attn.mla_fwd(pa, h, acfg, positions=positions) if mla
+                 else attn.gqa_fwd(pa, h, acfg, positions=positions,
                                    kind=akind, use_rope=cfg.use_rope))
             new_cache = (None if kind == "enc_attn" or mode == "train"
-                         else _prefill_cache(p["attn"], h, cfg, positions))
-        x = x + a
+                         else _prefill_cache(pa, h, acfg, positions))
+        x = x + (a if lay is None else lay.row_out(a))
         if kind == "xattn":
             a, cross = _cross_attention(p, _norm(p["ln_x"], x), cfg,
                                         positions=positions, mode=mode,
@@ -178,6 +183,9 @@ def apply_block(p: dict, x, cfg, kind: str, *, positions=None,
     h2 = _norm(p["ln2"], x)
     if kind == "moe":
         return x + moe_lib.moe_apply(p["moe"], h2, cfg, act=cfg.act), new_cache
+    if lay is not None:                 # column- then row-parallel
+        return x + lay.row_out(mlp_apply(p["mlp"], lay.col_in(h2),
+                                         cfg.act)), new_cache
     return x + mlp_apply(p["mlp"], h2, cfg.act), new_cache
 
 
@@ -301,7 +309,14 @@ def _embed(params, tokens, cfg, *, pos_offset: int = 0):
     # sorts the tokens and sums each row's gradients in a fixed order, so
     # a train step is deterministic without the deterministic-algorithms
     # mode (indexing's backward is an accumulating index_put_)
-    x = F.embedding(tokens, params["embed"])
+    lay = sharding.get_layout()
+    table = params["embed"]
+    if lay is not None:
+        table = lay.gather(table, lay.params["embed"])
+    x = F.embedding(tokens, table)
+    if lay is not None and lay.tp > 1:  # the table's d-slices, gathered
+        x = sharding.constrain(x, cfg.batch_axes, None, None,
+                               held=(cfg.batch_axes, None, "model"))
     if cfg.learned_pos:
         S = tokens.shape[1]
         if pos_offset + S > cfg.max_seq:
@@ -310,7 +325,10 @@ def _embed(params, tokens, cfg, *, pos_offset: int = 0):
             raise ValueError(f"{cfg.name}: positions up to "
                              f"{pos_offset + S} exceed the {cfg.max_seq} "
                              f"learned positions")
-        pe = params["pos_embed"][pos_offset:pos_offset + S].to(x.dtype)
+        pe = params["pos_embed"]
+        if lay is not None:
+            pe = lay.gather(pe, lay.params["pos_embed"])
+        pe = pe[pos_offset:pos_offset + S].to(x.dtype)
         x = x + pe[None]
     return x.to(cfg.dtype)
 
@@ -327,6 +345,29 @@ def encoder_fwd(params, frames, cfg):
     return _norm(params["enc_norm"], x)
 
 
+def _shard_act(x, cfg):
+    """The reference's layer-boundary constraint: the batch over
+    `cfg.batch_axes`, and under `shard_resid` (the "tp" layout) d over
+    'model' too, so the remat'd boundary activation is held sliced.
+    `x` itself on one card."""
+    axes = cfg.batch_axes
+    if cfg.shard_resid and cfg.layout != "fsdp":
+        return sharding.constrain(x, axes, *([None] * (x.ndim - 2)), "model")
+    return sharding.constrain(x, axes, *([None] * (x.ndim - 1)))
+
+
+def _whole_act(x, cfg):
+    """A block's input whole again: under `shard_resid`, the sliced
+    boundary activation all-gathered over 'model' (`x` itself on one
+    card)."""
+    if cfg.shard_resid and cfg.layout != "fsdp":
+        axes = cfg.batch_axes
+        return sharding.constrain(
+            x, axes, *([None] * (x.ndim - 1)),
+            held=(axes,) + (None,) * (x.ndim - 2) + ("model",))
+    return x
+
+
 def forward(params, tokens, cfg, *, mode: str = "prefill", cache=None,
             pos=None, enc_out=None, extra_embeds=None):
     """tokens: (B, S) integer (S = 1 for decode, at position `pos`, a
@@ -335,49 +376,81 @@ def forward(params, tokens, cfg, *, mode: str = "prefill", cache=None,
     cross K/V).  `extra_embeds`: (B, P, d) embeddings put ahead of the
     tokens (a vision config's patches), positions then running over
     P + S.  Returns (logits (B, P + S, padded_vocab), caches), the
-    caches None in train mode.  The reference's activation sharding
-    constraints are no-ops without a mesh; on one card there is none, so
-    they are left out."""
+    caches None in train mode.
+
+    On a process mesh (a `sharding.layout.LMLayout` registered by the
+    steps) `params`, `tokens` and the caches are this rank's shards:
+    each block's weights are gathered over their FSDP / ZeRO-3 axes at
+    its entry (inside the remat'd superblock, so the backward gathers
+    them again), the layer boundaries carry the reference's activation
+    constraints (`_shard_act`), and under tensor parallelism the logits
+    are this rank's vocab slice.  On one card the constraints return
+    their input."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
+    lay = sharding.get_layout()
+    places = lay.params if lay is not None else None
     head, pat, n_rep, tail = layer_layout(cfg)
     x = _embed(params, tokens, cfg, pos_offset=pos if mode == "decode" else 0)
     if extra_embeds is not None:
         x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
+    x = _shard_act(x, cfg)
     S = x.shape[1]
     positions = (torch.arange(S, device=x.device) if mode != "decode"
                  else None)
     kw = dict(positions=positions, mode=mode, pos=pos, enc_out=enc_out)
 
-    def run(kinds, blocks, caches, x):
+    def run(kinds, blocks, caches, x, where):
         out = []
         for i, (kind, bp) in enumerate(zip(kinds, blocks)):
-            x, c = apply_block(bp, x, cfg, kind,
+            if lay is not None:
+                bp = lay.gather_tree(bp, where[i])
+            x, c = apply_block(bp, _whole_act(x, cfg), cfg, kind,
                                cache=caches[i] if caches else None, **kw)
+            x = _shard_act(x, cfg)
             out.append(c)
         return x, out
 
-    def superblock(blocks, x):         # train mode under remat
-        return run(pat, blocks, None, x)[0]
+    def superblock(blocks, x, where):  # train mode under remat
+        return run(pat, blocks, None, x, where)[0]
+
+    def at(key, i=None):
+        if places is None:
+            return None
+        return places[key] if i is None else places[key][i]
 
     x, new_head = run(head, params["head_blocks"],
-                      cache["head"] if cache is not None else None, x)
+                      cache["head"] if cache is not None else None, x,
+                      at("head_blocks"))
     new_blocks = []
     names = [str(i) for i in range(len(pat))]
     for r in range(n_rep):
         blocks = [params["blocks"][r][n] for n in names]
+        where = [at("blocks", r)[n] for n in names] if places else None
         if mode == "train" and cfg.remat:
-            x = checkpoint(superblock, blocks, x, use_reentrant=False)
+            x = checkpoint(superblock, blocks, x, where, use_reentrant=False)
             continue
         c_in = ([cache["blocks"][r][n] for n in names]
                 if cache is not None else None)
-        x, c_out = run(pat, blocks, c_in, x)
+        x, c_out = run(pat, blocks, c_in, x, where)
         new_blocks.append(dict(zip(names, c_out)))
     x, new_tail = run(tail, params["tail_blocks"],
-                      cache["tail"] if cache is not None else None, x)
+                      cache["tail"] if cache is not None else None, x,
+                      at("tail_blocks"))
 
-    x = _norm(params["final_norm"], x)
-    logits = x @ params["lm_head"].to(cfg.dtype)
+    x = _whole_act(x, cfg)
+    fnorm, w_head = params["final_norm"], params["lm_head"]
+    if lay is not None:
+        fnorm = lay.gather_tree(fnorm, places["final_norm"])
+        w_head = lay.gather(w_head, places["lm_head"])
+    x = _norm(fnorm, x)
+    if lay is not None:                 # the vocab-parallel head's input
+        x = lay.col_in(x)
+    logits = x @ w_head.to(cfg.dtype)
+    vocab = None if cfg.layout == "fsdp" else "model"
+    logits = sharding.constrain(
+        logits, cfg.batch_axes, None, vocab,
+        held=(cfg.batch_axes, None, vocab if lay and lay.tp > 1 else None))
     if mode == "train":
         return logits, None
     return logits, {"head": new_head, "blocks": new_blocks, "tail": new_tail}

@@ -6,8 +6,9 @@ make_opt_cfg`): f32 for fidelity, bf16 to halve the moments' bytes, or
 "int8", 8-bit-Adam-style moments with one f32 scale per row of the last
 axis (`QMoment`), requantised from fresh f32 values every step so that
 quantisation noise does not accumulate beyond one step.  The ZeRO
-state specs (how a mesh would split the moments) are the dry run's,
-`launch/steps.py` `opt_state_specs`; the port trains on one card.
+state specs (how a mesh splits the moments) are `launch/steps.py`
+`opt_state_specs`; on a process mesh `apply` updates this rank's
+shards (`shards=`).
 
 Three places where the numbers depend on how the reference writes it,
 kept as it writes them:
@@ -77,8 +78,10 @@ def _f32(value: float, device) -> torch.Tensor:
     return torch.full((), value, dtype=torch.float32, device=device)
 
 
-def _quant(x: torch.Tensor) -> QMoment:
+def _quant(x: torch.Tensor, row_max=None) -> QMoment:
     amax = x.abs().amax(dim=-1, keepdim=True)
+    if row_max is not None:       # a row split over ranks: its shards' max
+        amax = row_max(amax)
     # a 0-d tensor divisor: PyTorch runs a CUDA division by a Python
     # scalar as a multiply by its reciprocal
     scale = torch.clamp_min(amax, 1e-30) / _f32(127.0, x.device)
@@ -111,11 +114,11 @@ def _rows(m, sl):
     return QMoment(m.q[sl], m.scale[sl]) if isinstance(m, QMoment) else m[sl]
 
 
-def _store(dst, x32: torch.Tensor, sl) -> None:
+def _store(dst, x32: torch.Tensor, sl, row_max=None) -> None:
     """x32 into rows `sl` of a moment in its own form (the cast of a
     copy rounds to nearest even, as `.to` does)."""
     if isinstance(dst, QMoment):
-        q = _quant(x32)
+        q = _quant(x32, row_max)
         dst.q[sl] = q.q
         dst.scale[sl] = q.scale
     else:
@@ -155,17 +158,32 @@ def ref_ndim(path: tuple, p: torch.Tensor) -> int:
 
 
 @torch.no_grad()
-def apply(params, grads, state: AdamWState, cfg: AdamWConfig):
+def apply(params, grads, state: AdamWState, cfg: AdamWConfig, *,
+          shards=None):
     """One AdamW step, written into `params` and the state's moments in
     place.  Returns (params, the new state, {"grad_norm"}).
 
     The gradient norm sums each leaf's f32 sum of squares in the
     reference's leaf order; the clip scale is min(1, clip / max(gnorm,
-    1e-12))."""
-    sq = None
-    for _, g in tree_items(grads):
-        s = torch.sum(torch.square(g.float()))
-        sq = s if sq is None else sq + s
+    1e-12)).
+
+    On a process mesh `params`, `grads` and the moments are this rank's
+    update shards and `shards` (a `sharding.layout.LMLayout`) holds the
+    rest of the model: the squares' global sum (`shards.sq_norm`: each
+    leaf's shards in rank order, a replicated shard counted once, then
+    the leaves in order) and an int8 row's amax over the shards its
+    last axis is split over (`shards.row_max`, a max: the same bits on
+    every shard)."""
+    if shards is None:
+        sq = None
+        for _, g in tree_items(grads):
+            s = torch.sum(torch.square(g.float()))
+            sq = s if sq is None else sq + s
+    else:
+        items = list(tree_items(grads))
+        sq = shards.sq_norm([p for p, _ in items],
+                            [torch.sum(torch.square(g.float()))
+                             for _, g in items])
     gnorm = torch.sqrt(sq)
     dev = gnorm.device
     if cfg.grad_clip:
@@ -180,6 +198,8 @@ def apply(params, grads, state: AdamWState, cfg: AdamWConfig):
 
     def upd(path, p, g, m, v):
         decay = ref_ndim(path, p) >= 2   # decoupled, matrices only
+        rmax = None if shards is None else (
+            lambda a: shards.row_max(path, a))
         for sl in _row_chunks(p):
             gs = g[sl].float() * scale
             m32 = _dequant(_rows(m, sl)) * cfg.b1 + (1 - cfg.b1) * gs
@@ -189,8 +209,8 @@ def apply(params, grads, state: AdamWState, cfg: AdamWConfig):
             if decay:
                 u = u + cfg.weight_decay * pf
             p[sl] = pf - cfg.lr * u
-            _store(m, m32, sl)
-            _store(v, v32, sl)
+            _store(m, m32, sl, rmax)
+            _store(v, v32, sl, rmax)
 
     tree_map_path(upd, params, grads, state.mu, state.nu)
     return params, AdamWState(step, state.mu, state.nu), \

@@ -3,8 +3,9 @@
 Parses every module of `src/repro_torch/` (the `launch/` and
 `analysis/` packages and `optim/lbfgs.py` included), `chip_smoke.py`,
 `tools/torch_breakdown.py`, `tools/same_timer.py`, `tools/streamed_ab.py`,
-`tools/mesh_dist_rank.py` (the process mesh's rank program) and
-`tools/audit_torch.py` (the port's audit CLI) with `ast`
+`tools/mesh_dist_rank.py` and `tools/lm_mesh_rank.py` (the process
+mesh's rank programs), `tools/stage_probe.py` and `tools/audit_torch.py`
+(the port's audit CLI) with `ast`
 and fails on any import of `jax` or `repro` (other than `repro_torch`),
 at any depth: inside functions too.
 """
@@ -19,7 +20,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tools" / "torch_breakdown.py",
     ROOT / "tools" / "same_timer.py", ROOT / "tools" / "streamed_ab.py",
-    ROOT / "tools" / "mesh_dist_rank.py", ROOT / "tools" / "audit_torch.py"]
+    ROOT / "tools" / "mesh_dist_rank.py", ROOT / "tools" / "lm_mesh_rank.py",
+    ROOT / "tools" / "stage_probe.py", ROOT / "tools" / "audit_torch.py"]
 
 
 def _forbidden(mod: str) -> bool:
@@ -96,8 +98,11 @@ def test_new_modules_are_checked():
             "src/repro_torch/launch/variants.py",
             "src/repro_torch/launch/dryrun.py",
             "src/repro_torch/sharding/__init__.py",
+            "src/repro_torch/sharding/collectives.py",
+            "src/repro_torch/sharding/layout.py",
             "src/repro_torch/kernels/costs.py",
-            "tools/mesh_dist_rank.py", "tools/audit_torch.py"} <= names
+            "tools/mesh_dist_rank.py", "tools/lm_mesh_rank.py",
+            "tools/stage_probe.py", "tools/audit_torch.py"} <= names
 
 
 def test_every_kernel_source_is_registered():
