@@ -22,6 +22,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
+import time
 
 import torch
 
@@ -173,20 +174,66 @@ def _on(lay):
         else sharding.use_layout(lay)
 
 
+#: the last `init_params(mesh=)` on a card shared by its ranks: its
+#: seconds and the card's most bytes in use seen right after a draw
+INIT_STATS: dict = {}
+
+
 def init_params(cfg, seed: int = 0, device="cuda", mesh=None) -> dict:
     """Random parameters of `cfg` on `device` (the card unless the
     caller asks for the CPU).  With `mesh` (a `DistMesh`; its device),
     this rank's shards: each leaf drawn whole in the one-card order, a
     leaf at a time, and this rank's slice kept, so the shards are
-    `torch.equal` to the slices of the one-card draw."""
+    `torch.equal` to the slices of the one-card draw.  Where the ranks
+    share a card (`mesh.stages`: gloo on CUDA) they draw each leaf in
+    turn, rank by rank with the layout's barrier between them, and each
+    returns its cached blocks to the card after its draw: a whole leaf
+    drawn in f32 is 22.5 GB for one of kimi-k2's expert leaves, more
+    than the card holds four times.  A rank casts only its slice of the
+    f32 draw, into a shard allocated before the draw (so that the shard
+    does not pin the draw's blocks in the allocator's cache): the cast
+    is elementwise, so the shard is the slice of the one-card draw.
+    `INIT_STATS` then holds the card's most bytes in use, read right
+    after each draw."""
     dev = resolve_device(device) if mesh is None else mesh.device
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     if mesh is None:
         return materialize(lm.param_specs(cfg), gen, dev)
     lay = layout_for(cfg, mesh)
-    return tree_map(lambda s, pl: lay.local(s.initializer(gen, dev), pl),
-                    lm.param_specs(cfg), lay.params)
+    if not mesh.stages:
+        return tree_map(lambda s, pl: lay.local(s.initializer(gen, dev), pl),
+                        lm.param_specs(cfg), lay.params)
+    t0 = time.perf_counter()
+    peak = 0
+
+    def in_turn(s, pl):
+        nonlocal peak
+        shard = None
+        for r in range(mesh.size):
+            if r == mesh.rank:
+                shard = torch.empty([n // mesh.group_size(a) for n, a in
+                                     zip(pl.shape, pl.part)],
+                                    dtype=s.dtype, device=dev)
+                whole = s.draw(gen, dev)
+                free, total = torch.cuda.mem_get_info(dev)
+                peak = max(peak, total - free)
+                part = whole
+                for dim, axes in enumerate(pl.part):
+                    if axes:
+                        n = part.shape[dim] // mesh.group_size(axes)
+                        part = part.narrow(dim, mesh.group_index(axes) * n, n)
+                shard.copy_(part)
+                del whole, part
+                torch.cuda.empty_cache()
+            lay.barrier()
+        return shard
+
+    out = tree_map(in_turn, lm.param_specs(cfg), lay.params)
+    INIT_STATS.clear()
+    INIT_STATS.update(seconds=time.perf_counter() - t0,
+                      card_peak_bytes=peak)
+    return out
 
 
 def init_opt_state(cfg, params, opt_cfg: adamw.AdamWConfig, mesh=None):

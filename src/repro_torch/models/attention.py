@@ -176,36 +176,46 @@ def mla_specs(cfg) -> dict:
     return sp
 
 
-def _mla_q(p, x, cfg):
+def _same(t):
+    return t
+
+
+def _mla_q(p, x, cfg, seam=None):
+    """x -> q (B, S, H, nd + rd).  `seam` marks where the per-head part
+    begins (on a mesh, the column-parallel input: x, or the normed q
+    latent under a q-LoRA); None, the identity, on one card."""
     B, S, _ = x.shape
+    seam = seam or _same
     if cfg.q_lora_rank:
-        q = rmsnorm(x @ p["wq_a"], p["q_norm"]) @ p["wq_b"]
+        q = seam(rmsnorm(x @ p["wq_a"], p["q_norm"])) @ p["wq_b"]
     else:
-        q = x @ p["wq"]
+        q = seam(x) @ p["wq"]
     return q.reshape(B, S, cfg.n_heads, cfg.qk_nope_dim + cfg.qk_rope_dim)
 
 
-def _mla_latent(p, x, cfg, positions):
-    """x -> (c_kv (B, S, kvr), the rotated shared key (B, S, 1, rd))."""
+def _mla_latent(p, x, cfg, positions, seam=None):
+    """x -> (c_kv (B, S, kvr), the rotated shared key (B, S, 1, rd)),
+    each through `seam` (see `_mla_q`)."""
+    seam = seam or _same
     kvr = cfg.kv_lora_rank
     kv_a = x @ p["wkv_a"]
     c_kv = rmsnorm(kv_a[..., :kvr], p["kv_norm"])
     k_rope = apply_rope(kv_a[..., kvr:][:, :, None, :], positions,
                         cfg.rope_theta)
-    return c_kv, k_rope
+    return seam(c_kv), seam(k_rope)
 
 
-def mla_fwd(p: dict, x, cfg, *, positions):
+def mla_fwd(p: dict, x, cfg, *, positions, seam=None):
     """Prefill: per-head K/V materialised from the latent.  B5 runs at
     hd = nope + rope with hd_v = v_head_dim, scaled by (nope + rope)^-0.5
-    (standard MLA scaling)."""
+    (standard MLA scaling).  `seam`: see `_mla_q`."""
     B, S, _ = x.shape
     H = cfg.n_heads
     nd, rd, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
 
-    q = _mla_q(p, x, cfg)
+    q = _mla_q(p, x, cfg, seam)
     q_rope = apply_rope(q[..., nd:], positions, cfg.rope_theta)
-    c_kv, k_rope = _mla_latent(p, x, cfg, positions)
+    c_kv, k_rope = _mla_latent(p, x, cfg, positions, seam)
     kv = (c_kv @ p["wkv_b"]).reshape(B, S, H, nd + vd)
 
     qf = torch.cat([q[..., :nd], q_rope], dim=-1)
@@ -223,10 +233,11 @@ def mla_cache_shape(cfg, batch: int, max_seq: int) -> dict:
                                 torch.bfloat16)}
 
 
-def mla_decode(p: dict, x, cache: dict, cfg, *, pos: int):
+def mla_decode(p: dict, x, cache: dict, cfg, *, pos: int, seam=None):
     """Latent (absorbed) decode: attention runs in the kv_lora space, in
     f32.  x: (B, 1, d); pos: the token's position.  Writes c_kv and
-    k_rope into `cache` IN PLACE and returns (out, cache)."""
+    k_rope into `cache` IN PLACE and returns (out, cache).  `seam`: see
+    `_mla_q`."""
     B = x.shape[0]
     H = cfg.n_heads
     nd, rd, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
@@ -235,9 +246,9 @@ def mla_decode(p: dict, x, cache: dict, cfg, *, pos: int):
     Smax = c_kv.shape[1]
 
     pp = torch.full((1, 1), pos, dtype=torch.int64, device=x.device)
-    q = _mla_q(p, x, cfg)                                # (B, 1, H, nd+rd)
+    q = _mla_q(p, x, cfg, seam)                          # (B, 1, H, nd+rd)
     q_rope = apply_rope(q[..., nd:], pp, cfg.rope_theta)
-    c_new, kr_new = _mla_latent(p, x, cfg, pp)
+    c_new, kr_new = _mla_latent(p, x, cfg, pp, seam)
     c_kv[:, pos] = c_new[:, 0].to(c_kv.dtype)
     k_rope[:, pos] = kr_new[:, 0, 0].to(k_rope.dtype)
 

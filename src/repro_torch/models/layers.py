@@ -108,6 +108,13 @@ class ParamSpec:
         is applied in place, so a leaf's draw peaks at 1.5x its f32
         bytes (the f32 draw and the cast), not 2.5x: kimi-k2's expert
         leaves are 22.5 GB each in f32."""
+        return self.draw(gen, device).to(self.dtype)
+
+    def draw(self, gen: torch.Generator,
+             device: torch.device) -> torch.Tensor:
+        """`initializer`'s draw before its cast to `dtype` (f32 for the
+        normal init): the cast is elementwise, so a slice cast alone
+        equals the slice of the cast whole."""
         if self.init == "zeros":
             return torch.zeros(self.shape, dtype=self.dtype, device=device)
         if self.init == "ones":
@@ -116,7 +123,7 @@ class ParamSpec:
         std = self.scale if self.scale is not None else 1.0 / math.sqrt(fan_in)
         w = torch.randn(self.shape, generator=gen, dtype=torch.float32,
                         device=device)
-        return w.mul_(std).to(self.dtype)
+        return w.mul_(std)
 
 
 def materialize(specs, gen: torch.Generator, device: torch.device):

@@ -149,18 +149,23 @@ def apply_block(p: dict, x, cfg, kind: str, *, positions=None,
         akind = _attn_kind(cfg, kind)
         mla = cfg.attention == "mla"
         self_cache = cache["self"] if kind == "xattn" and cache else cache
-        pa, acfg = p["attn"], cfg
+        pa, acfg, seam = p["attn"], cfg, None
         if lay is not None:             # this rank's heads
             pa, acfg = lay.attn_params(pa)
-            h = lay.col_in(h)
+            if mla:                     # after MLA's replicated latent
+                seam = lay.col_in
+            else:
+                h = lay.col_in(h)
         if mode == "decode" and mla:
-            a, new_cache = attn.mla_decode(pa, h, self_cache, acfg, pos=pos)
+            a, new_cache = attn.mla_decode(pa, h, self_cache, acfg, pos=pos,
+                                           seam=seam)
         elif mode == "decode":
             a, new_cache = attn.gqa_decode(pa, h, self_cache, acfg,
                                            pos=pos, kind=akind,
                                            use_rope=cfg.use_rope)
         else:
-            a = (attn.mla_fwd(pa, h, acfg, positions=positions) if mla
+            a = (attn.mla_fwd(pa, h, acfg, positions=positions, seam=seam)
+                 if mla
                  else attn.gqa_fwd(pa, h, acfg, positions=positions,
                                    kind=akind, use_rope=cfg.use_rope))
             new_cache = (None if kind == "enc_attn" or mode == "train"
@@ -182,7 +187,8 @@ def apply_block(p: dict, x, cfg, kind: str, *, positions=None,
         raise ValueError(f"unknown block kind {kind!r}")
     h2 = _norm(p["ln2"], x)
     if kind == "moe":
-        return x + moe_lib.moe_apply(p["moe"], h2, cfg, act=cfg.act), new_cache
+        return x + moe_lib.moe_apply(p["moe"], h2, cfg, act=cfg.act,
+                                     layout=lay), new_cache
     if lay is not None:                 # column- then row-parallel
         return x + lay.row_out(mlp_apply(p["mlp"], lay.col_in(h2),
                                          cfg.act)), new_cache

@@ -1,4 +1,5 @@
-"""Mixture-of-Experts: sort-based capacity dispatch on one card.
+"""Mixture-of-Experts: sort-based capacity dispatch, on one card and
+with expert parallelism on a process mesh.
 
 Mirrors the reference's `models/moe.py`: the router's top-k in f32, a
 stable argsort of the chosen experts, each pair's rank within its
@@ -15,12 +16,64 @@ token's k weighted outputs are gathered back to (T, k) and summed in a
 fixed order, ascending expert id, the order in which the reference's
 scatter-add meets them.  The reference rounds that sum through its
 scatter, so in bf16 the two may differ in the last bit of a sum.
+
+On a process mesh (`moe_apply(layout=)`, a `sharding.layout.LMLayout`)
+the experts are split as the reference's specs put them, E over 'data'
+and d over 'model', and stay resident: tokens move to them.  The slots
+are the one-card program's: each rank's top-k ids are all-gathered over
+the batch axes in rank order and `dispatch_slots` runs on the global
+ids, so `slot` and `keep` are integer for integer one process's (and
+capacity counts the global tokens).  Each rank sends the d-slice of its
+kept pairs' rows to the experts' owners in one all-to-all over 'data'
+(`sharding.collectives.all_to_all`; a chunk a destination, padded to
+the largest (source, owner) count, in slot order), the owner places
+them at their slots (kept slots are unique, so rows from different
+ranks never meet), runs the expert products on its E / data experts
+and d / model columns (the gate and up products' partials summed over
+'model' in rank order), and the reverse all-to-all brings each pair's
+output row back to its token's rank.  The rows are all-gathered over
+'model' before the router's weighting, so `gate_w`, and through it the
+router, gets its whole gradient on every model rank, and a token's k
+outputs are summed in ascending expert id as on one card.  Every
+integer of the plan is known to every rank from the global ids, so no
+counts are exchanged.  The shared experts are an MLP, column- then
+row-parallel.  On a mesh with pods each pod's owners take their own
+pod's tokens (the other rows of the buffer are zero) and the experts'
+gradients are summed over 'pod' with the other replicated weights'.
+
+`record_dispatch()` collects each call's global (slot, keep), on one
+card and on a mesh alike.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
 from .layers import ParamSpec, act_fn
+
+_LOG: list | None = None
+
+
+@contextlib.contextmanager
+def record_dispatch():
+    """Collect, in a list that the body receives, each `moe_apply`
+    call's global `slot` and `keep` (sorted order, on the CPU) as
+    {"slot", "keep"}.  The copies synchronise the device."""
+    global _LOG
+    before, _LOG = _LOG, []
+    try:
+        yield _LOG
+    finally:
+        _LOG = before
+
+
+def dispatch_counts(log: list) -> dict:
+    """{"kept", "dropped"} pairs over the calls of a `record_dispatch`
+    log."""
+    kept = sum(int(r["keep"].sum()) for r in log)
+    return {"kept": kept, "dropped": sum(r["keep"].numel()
+                                         for r in log) - kept}
 
 
 def moe_specs(cfg) -> dict:
@@ -77,9 +130,18 @@ def dispatch_slots(gate_ids: torch.Tensor, n_experts: int, cap: int):
     return order, slot, keep, order // gate_ids.shape[1]
 
 
-def moe_apply(p: dict, x: torch.Tensor, cfg, *,
-              act: str = "silu") -> torch.Tensor:
-    """x: (..., d) -> (..., d).  Flattens leading dims to tokens."""
+def _record(slot, keep) -> None:
+    if _LOG is not None:
+        _LOG.append({"slot": slot.cpu(), "keep": keep.cpu()})
+
+
+def moe_apply(p: dict, x: torch.Tensor, cfg, *, act: str = "silu",
+              layout=None) -> torch.Tensor:
+    """x: (..., d) -> (..., d).  Flattens leading dims to tokens.  With
+    `layout` (an `LMLayout`), `p` and `x` are this rank's shards and
+    rows (x whole along d) and the experts run expert-parallel."""
+    if layout is not None:
+        return _moe_mesh(p, x, cfg, layout, act)
     orig_shape = x.shape
     d, E, k = cfg.d_model, cfg.n_experts, cfg.top_k
     xt = x.reshape(-1, d)
@@ -88,6 +150,7 @@ def moe_apply(p: dict, x: torch.Tensor, cfg, *,
 
     gate_w, gate_ids = route(xt, p["router"], k)
     order, slot, keep, src_tok = dispatch_slots(gate_ids, E, C)
+    _record(slot, keep)
 
     # kept slots are unique: write them; dropped pairs land in row E*C
     buf = xt.new_zeros((E * C + 1, d))
@@ -111,4 +174,92 @@ def moe_apply(p: dict, x: torch.Tensor, cfg, *,
     if cfg.n_shared_experts:
         sp = p["shared"]
         out = out + (a(xt @ sp["w_gate"]) * (xt @ sp["w_up"])) @ sp["w_down"]
+    return out.reshape(orig_shape).to(x.dtype)
+
+
+def _moe_mesh(p: dict, x: torch.Tensor, cfg, lay, act: str) -> torch.Tensor:
+    """`moe_apply` on a process mesh (see the module's docstring)."""
+    from repro_torch.sharding import collectives as coll
+    mesh = lay.mesh
+    orig_shape = x.shape
+    d, E, k = cfg.d_model, cfg.n_experts, cfg.top_k
+    xt = x.reshape(-1, d)
+    Tl = xt.shape[0]
+    nb = lay.batch_div
+    C = capacity(Tl * nb, E, k, cfg.moe_capacity)
+    D = mesh.group_size(lay.ep_axes)         # owners; El experts each
+    El = E // D
+    me = mesh.group_index(lay.batch_axes) if lay.batch_axes else 0
+    own = me % D                             # my data index: my experts
+    dev = xt.device
+
+    gate_w, gate_ids = route(xt, p["router"], k)
+    ids = coll.all_gather(gate_ids.contiguous(), mesh, lay.batch_axes, 0,
+                          "moe_ids")
+    order, slot, keep, _ = dispatch_slots(ids, E, C)
+    _record(slot, keep)
+
+    # the plan, the same on every rank: each kept pair (slot order), its
+    # token's batch rank `src`, its expert's owner `dst` and its place
+    # `pos` in the (src, dst) chunk, the chunks padded to M rows
+    pair, kslot = order[keep], slot[keep]
+    src, dst = pair // (Tl * k), kslot // (El * C)
+    key = src * D + dst
+    perm = torch.argsort(key, stable=True)
+    skey = key[perm]
+    starts = torch.searchsorted(skey, torch.arange(nb * D, device=dev))
+    pos = torch.empty_like(perm)
+    pos[perm] = torch.arange(perm.numel(), device=dev) - starts[skey]
+    ends = torch.cat([starts[1:], starts.new_tensor([perm.numel()])])
+    M = int((ends - starts).max())
+    mine = src == me
+    inbox = (dst == own) & (src // D == me // D)
+    at_src = dst[mine] * M + pos[mine]       # my pairs in what I send
+    at_dst = (src[inbox] % D) * M + pos[inbox]   # ... and what I get
+    local = pair[mine] - me * Tl * k         # my pairs, t * k + j
+    lslot = kslot[inbox] - own * El * C      # my experts' slots filled
+
+    def spread(n, at, val, fill):
+        out = torch.full((n,), fill, dtype=torch.long, device=dev)
+        out[at] = val
+        return out
+
+    def rows(t, idx):                        # t[idx], idx == len(t): 0
+        return torch.cat([t, t.new_zeros((1,) + tuple(t.shape[1:]))])[idx]
+
+    # dispatch: my tokens' d-slices, a row a pair (no row is read twice,
+    # so the backward adds nothing into an index)
+    xm = coll.slice_act(xt, mesh, lay.tp_axes, -1, "moe_slice")
+    dm = xm.shape[-1]
+    xk = xm[:, None, :].expand(Tl, k, dm).reshape(Tl * k, dm)
+    send = rows(xk, spread(D * M, at_src, local, Tl * k))
+    recv = coll.all_to_all(send, mesh, lay.ep_axes, "moe_dispatch")
+    buf = rows(recv, spread(El * C, lslot, at_dst, D * M)).view(El, C, dm)
+
+    a = act_fn(act)
+    ff = p["w_gate"].shape[-1]
+    gu = lay.row_out(torch.cat([torch.bmm(buf, p["w_gate"]),
+                                torch.bmm(buf, p["w_up"])], dim=-1),
+                     "moe_expert_sum")
+    h = lay.col_in(a(gu[..., :ff]) * gu[..., ff:], "moe_expert_sum")
+    out_buf = torch.bmm(h, p["w_down"]).reshape(El * C, dm)
+
+    # combine: each pair's row back to its token's rank, whole along d
+    back = rows(out_buf, spread(D * M, at_dst, lslot, El * C))
+    got = coll.all_to_all(back, mesh, lay.ep_axes, "moe_combine")
+    got = coll.gather_act(got, mesh, lay.tp_axes, -1, "moe_gather")
+    # a dropped pair reads the zero row: it adds nothing, as on one card
+    row_of = spread(Tl * k, local, at_src, D * M).view(Tl, k)
+    up = torch.argsort(gate_ids, dim=1, stable=True)   # ascending expert
+    contrib = rows(got, torch.gather(row_of, 1, up)) * torch.gather(
+        gate_w, 1, up)[..., None].to(got.dtype)        # (Tl, k, d)
+    out = contrib[:, 0]
+    for j in range(1, k):
+        out = out + contrib[:, j]
+
+    if cfg.n_shared_experts:
+        sp = p["shared"]
+        xs = lay.col_in(xt)
+        out = out + lay.row_out(
+            (a(xs @ sp["w_gate"]) * (xs @ sp["w_up"])) @ sp["w_down"])
     return out.reshape(orig_shape).to(x.dtype)

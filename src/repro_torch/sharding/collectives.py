@@ -34,10 +34,13 @@ model rank.
                       row-parallel output
   * `copy_in`         identity forward, ordered sum backward: a
                       column-parallel input
+  * `all_to_all`      an all-to-all of equal chunks forward, the reverse
+                      all-to-all backward: the MoE's dispatch of tokens
+                      to their experts' owners and its combine
 
-`STATS` counts each kind's calls, bytes sent (this rank's payload) and
-seconds on the host's clock (the staged copies synchronize the device);
-`reset_stats` zeroes it.
+`STATS` counts each kind's calls, bytes sent (this rank's payload),
+seconds on the host's clock (the staged copies synchronize the device)
+and the distinct payload shapes; `reset_stats` zeroes it.
 """
 from __future__ import annotations
 
@@ -49,7 +52,8 @@ import time
 
 import torch
 
-#: kind -> {"calls", "bytes", "seconds"}, this process's collectives
+#: kind -> {"calls", "bytes", "seconds", "shapes"}, this process's
+#: collectives (the distinct shapes of its payloads, as lists)
 STATS: dict = {}
 
 _COLL: dict = {}
@@ -73,7 +77,9 @@ class HostStage:
     copies into and out of it run at 6.2 and 5.1 GB/s there with 4
     ranks at work (`tools/stage_probe.py`).  The buffer
     grows (to twice its size at least) when a payload does not fit;
-    every member sees the same payloads, so they grow it together."""
+    every member sees the same payloads, so they grow it together (the
+    MoE's all-to-all to the group's size times a rank's dispatch
+    payload)."""
 
     def __init__(self, mesh, axes):
         self.mesh, self.axes = mesh, axes
@@ -114,7 +120,10 @@ class HostStage:
             self._mm = mmap.mmap(fd, cap)
         finally:
             os.close(fd)
-        self.buf = torch.frombuffer(self._mm, dtype=torch.uint8)
+        # a buffer first grown under serving's inference mode is written
+        # outside it afterwards: it must not be an inference tensor
+        with torch.inference_mode(False):
+            self.buf = torch.frombuffer(self._mm, dtype=torch.uint8)
         self.barrier()
         if self.i == 0:
             os.unlink(path)
@@ -160,11 +169,14 @@ def _stage(mesh, axes) -> HostStage:
     return _STAGES[key]
 
 
-def _note(kind: str, nbytes: int, t0: float) -> None:
-    rec = STATS.setdefault(kind, {"calls": 0, "bytes": 0, "seconds": 0.0})
+def _note(kind: str, x: torch.Tensor, t0: float) -> None:
+    rec = STATS.setdefault(kind, {"calls": 0, "bytes": 0, "seconds": 0.0,
+                                  "shapes": []})
     rec["calls"] += 1
-    rec["bytes"] += int(nbytes)
+    rec["bytes"] += x.numel() * x.element_size()
     rec["seconds"] += time.perf_counter() - t0
+    if list(x.shape) not in rec["shapes"]:
+        rec["shapes"].append(list(x.shape))
 
 
 def _coll(mesh):
@@ -203,7 +215,7 @@ def all_gather(x: torch.Tensor, mesh, axes, dim: int,
         return x
     t0 = time.perf_counter()
     out = torch.cat(_gather(x, mesh, axes), dim=dim)
-    _note(kind, x.numel() * x.element_size(), t0)
+    _note(kind, x, t0)
     return out
 
 
@@ -213,7 +225,7 @@ def gather_list(x: torch.Tensor, mesh, axes, kind: str) -> list:
         return [x]
     t0 = time.perf_counter()
     out = _gather(x, mesh, axes)
-    _note(kind, x.numel() * x.element_size(), t0)
+    _note(kind, x, t0)
     return out
 
 
@@ -234,7 +246,7 @@ def reduce_scatter(x: torch.Tensor, mesh, axes, dim: int,
     else:
         got = _coll(mesh)._all_to_all(xm, axes)
     out = _ordered(got.reshape((L, -1) + tuple(xm.shape[1:])).unbind(0))
-    _note(kind, x.numel() * x.element_size(), t0)
+    _note(kind, x, t0)
     return out.movedim(0, dim)
 
 
@@ -267,6 +279,36 @@ def chunk(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
     return x.narrow(dim, mesh.group_index(axes) * n, n).contiguous()
 
 
+def _exchange(x: torch.Tensor, mesh, axes, kind: str) -> torch.Tensor:
+    """x (L * c, ...) -> (L * c, ...): chunk j of the result is member
+    j's chunk i (i this rank's index in the group)."""
+    L = mesh.group_size(axes)
+    if L == 1:
+        return x
+    if x.shape[0] % L:
+        raise ValueError(f"all-to-all of {tuple(x.shape)} over {L} ranks")
+    t0 = time.perf_counter()
+    x = x.contiguous()
+    if mesh.backend == "gloo":
+        out = _stage(mesh, axes).chunks(x).reshape(x.shape)
+    else:
+        out = _coll(mesh)._all_to_all(x, axes)
+    _note(kind, x, t0)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, kind):
+        ctx.mesh, ctx.axes, ctx.kind = mesh, axes, kind
+        return _exchange(x, mesh, axes, kind)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_exchange(g, ctx.mesh, ctx.axes, f"{ctx.kind}_bwd"),
+                None, None, None)
+
+
 class _GatherRS(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axes, dim, kind):
@@ -281,46 +323,46 @@ class _GatherRS(torch.autograd.Function):
 
 class _GatherSlice(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, axes, dim):
+    def forward(ctx, x, mesh, axes, dim, kind):
         ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
-        return all_gather(x, mesh, axes, dim, "act_gather")
+        return all_gather(x, mesh, axes, dim, kind)
 
     @staticmethod
     def backward(ctx, g):
-        return chunk(g, ctx.mesh, ctx.axes, ctx.dim), None, None, None
+        return chunk(g, ctx.mesh, ctx.axes, ctx.dim), None, None, None, None
 
 
 class _SliceGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, axes, dim):
-        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+    def forward(ctx, x, mesh, axes, dim, kind):
+        ctx.mesh, ctx.axes, ctx.dim, ctx.kind = mesh, axes, dim, kind
         return chunk(x, mesh, axes, dim)
 
     @staticmethod
     def backward(ctx, g):
         return (all_gather(g.contiguous(), ctx.mesh, ctx.axes, ctx.dim,
-                           "act_gather"), None, None, None)
+                           ctx.kind), None, None, None, None)
 
 
 class _Sum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, axes):
-        return ordered_sum(x, mesh, axes, "sum")
+    def forward(ctx, x, mesh, axes, kind):
+        return ordered_sum(x, mesh, axes, kind)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None, None
+        return g, None, None, None
 
 
 class _CopySum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, axes):
-        ctx.mesh, ctx.axes = mesh, axes
+    def forward(ctx, x, mesh, axes, kind):
+        ctx.mesh, ctx.axes, ctx.kind = mesh, axes, kind
         return x
 
     @staticmethod
     def backward(ctx, g):
-        return ordered_sum(g, ctx.mesh, ctx.axes, "sum"), None, None
+        return ordered_sum(g, ctx.mesh, ctx.axes, ctx.kind), None, None, None
 
 
 def gather_weight(w, mesh, axes, dim: int, kind: str = "gather"):
@@ -330,29 +372,40 @@ def gather_weight(w, mesh, axes, dim: int, kind: str = "gather"):
     return _GatherRS.apply(w, mesh, axes, dim, kind)
 
 
-def gather_act(x, mesh, axes, dim: int):
+def gather_act(x, mesh, axes, dim: int, kind: str = "act_gather"):
     """All-gather forward, this rank's chunk backward."""
     if mesh.group_size(axes) == 1:
         return x
-    return _GatherSlice.apply(x, mesh, axes, dim)
+    return _GatherSlice.apply(x, mesh, axes, dim, kind)
 
 
-def slice_act(x, mesh, axes, dim: int):
+def slice_act(x, mesh, axes, dim: int, kind: str = "act_gather"):
     """This rank's chunk forward, all-gather backward."""
     if mesh.group_size(axes) == 1:
         return x
-    return _SliceGather.apply(x, mesh, axes, dim)
+    return _SliceGather.apply(x, mesh, axes, dim, kind)
 
 
-def sum_out(x, mesh, axes):
+def sum_out(x, mesh, axes, kind: str = "sum"):
     """Ordered sum forward, identity backward."""
     if mesh.group_size(axes) == 1:
         return x
-    return _Sum.apply(x, mesh, axes)
+    return _Sum.apply(x, mesh, axes, kind)
 
 
-def copy_in(x, mesh, axes):
+def copy_in(x, mesh, axes, kind: str = "sum"):
     """Identity forward, ordered sum backward."""
     if mesh.group_size(axes) == 1:
         return x
-    return _CopySum.apply(x, mesh, axes)
+    return _CopySum.apply(x, mesh, axes, kind)
+
+
+def all_to_all(x, mesh, axes, kind: str):
+    """x (L * c, ...), L the group's size: chunk j of the result is
+    member j's chunk i, i this rank's group index (a transpose of the
+    chunks over the group).  Its backward is the same exchange of the
+    gradient, the reverse all-to-all (kind + "_bwd").  No arithmetic:
+    the bytes arrive as they were sent."""
+    if mesh.group_size(axes) == 1:
+        return x
+    return _AllToAll.apply(x, mesh, axes, kind)

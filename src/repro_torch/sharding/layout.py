@@ -26,8 +26,24 @@ before the update and the updated shard all-gathered after it.  A
 gradient is summed over the batch axes its weight is not gathered over
 (the gather's reduce-scatter sums the others), in rank order.
 
-Dense attention decoders only: MoE, MLA, the recurrent blocks, the
-encoder-decoder and the vision stub on a mesh are later slices.
+Expert parallelism is a third kind of split.  The routed experts'
+leaves (`w_gate`, `w_up`, `w_down` of a MoE block) are split over
+'data' along E, as the reference's `moe_specs` puts them, and over
+'model' along d; 'data' is their `Placement.ep` axis: they stay
+resident on their owners and the tokens move to them (`models.moe`'s
+all-to-all), so `gather` never gathers them, `sync_grads` never sums
+their gradients over 'data' (every data rank's tokens reached the
+owner) and ZeRO-1 splits them no further.  MLA runs column-parallel by
+whole heads (`wq` / `wq_b`, `wkv_b`; `wo` row-parallel) with its latent
+projections (`wkv_a`, `kv_norm`, `wq_a`, `q_norm`) replicated: the
+column-parallel seam (`col_in`) sits on the latent and the normed q
+latent, after the replicated part, so their gradients are whole on
+every model rank.
+
+The decoders with full attention or MLA, dense or MoE ("tp" layout;
+MoE under "fsdp" is refused), run on a mesh; local attention, the
+recurrent blocks, the encoder-decoder and the vision stub are later
+slices.
 """
 from __future__ import annotations
 
@@ -45,20 +61,25 @@ from . import collectives as coll
 @dataclasses.dataclass(frozen=True)
 class Placement:
     """A leaf's global shape and, per dimension, the live mesh axes it is
-    split over (() whole), in mesh order, the first the major."""
+    split over (() whole), in mesh order, the first the major; `ep` the
+    axes among them that are expert-parallel (the leaf stays resident
+    there: never gathered, its gradient never summed over them)."""
     shape: tuple
     part: tuple
+    ep: tuple = ()
 
     @property
     def axes(self) -> tuple:
         return tuple(a for e in self.part for a in e)
 
 
-def _check_dense(cfg) -> None:
+#: the routed experts' leaves of a MoE block (E leading)
+EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
+
+
+def _check_supported(cfg) -> None:
     later = []
-    if cfg.n_experts:
-        later.append("MoE expert parallelism")
-    if cfg.attention != "full":
+    if cfg.attention not in ("full", "mla"):
         later.append(f"{cfg.attention} attention")
     if cfg.block_pattern:
         later.append("the recurrent blocks")
@@ -67,7 +88,19 @@ def _check_dense(cfg) -> None:
     if later:
         raise NotImplementedError(
             f"{cfg.name} on a process mesh: {', '.join(later)} wait for a "
-            f"later slice; the mesh runs the dense attention decoders")
+            f"later slice; the mesh runs the decoders with full attention "
+            f"or MLA, dense or MoE")
+    if cfg.n_experts and cfg.layout == "fsdp":
+        raise NotImplementedError(
+            f"{cfg.name}: MoE in the \"fsdp\" layout (the batch over "
+            f"'model' too) is used by no config; expert parallelism runs "
+            f"in the \"tp\" layout")
+
+
+def _is_expert(path) -> bool:
+    """Whether a leaf path is a routed expert's weight (not the router's,
+    not a shared expert's)."""
+    return len(path) >= 2 and path[-2] == "moe" and path[-1] in EXPERT_LEAVES
 
 
 class LMLayout:
@@ -76,7 +109,7 @@ class LMLayout:
     def __init__(self, cfg, mesh):
         from repro_torch.launch.steps import (model_param_specs,
                                               opt_state_specs)
-        _check_dense(cfg)
+        _check_supported(cfg)
         self.cfg, self.mesh = cfg, mesh
         self.tp_axes = (("model",) if cfg.layout == "tp" and mesh.model > 1
                         else ())
@@ -88,6 +121,8 @@ class LMLayout:
                 f"port refuses)")
         self.batch_axes = mesh.live_axes(cfg.batch_axes)
         self.batch_div = mesh.group_size(self.batch_axes)
+        #: the experts' axis: E split over 'data', tokens exchanged there
+        self.ep_axes = mesh.live_axes("data") if cfg.n_experts else ()
         self.params = self._port(model_param_specs(cfg, mesh))
         self.opt = self._port(opt_state_specs(cfg, mesh))
         self._opt_at = dict(tree_items(self.opt))
@@ -96,7 +131,7 @@ class LMLayout:
 
     # -- placements ------------------------------------------------------
 
-    def _place(self, shape, pspec) -> Placement:
+    def _place(self, shape, pspec, expert: bool = False) -> Placement:
         entries = tuple(pspec) + (None,) * (len(shape) - len(pspec))
         part = tuple(self.mesh.live_axes(
             () if e is None else (e,) if isinstance(e, str) else e)
@@ -106,7 +141,7 @@ class LMLayout:
                 raise ValueError(f"{self.cfg.name}: dimension {n} of "
                                  f"{tuple(shape)} does not split over "
                                  f"{axes}")
-        return Placement(tuple(shape), part)
+        return Placement(tuple(shape), part, self.ep_axes if expert else ())
 
     def _port(self, stacked) -> dict:
         """The stacked specs' partitions on the port's tree (a dict a
@@ -116,19 +151,23 @@ class LMLayout:
         out = {}
         for key, sub in port.items():
             if key != "blocks":
-                out[key] = tree_map(lambda p, s: self._place(p.shape, s.pspec),
-                                    sub, stacked[key])
+                out[key] = tree_map_path(
+                    lambda path, p, s: self._place(p.shape, s.pspec,
+                                                   _is_expert(path)),
+                    sub, stacked[key])
                 continue
 
-            def per(p, s):
+            def per(path, p, s):
                 lead = s.pspec[0] if s.pspec else None
                 if lead is not None:
                     raise NotImplementedError(
                         f"{self.cfg.name}: a partition of the stacked "
                         f"layer axis ({s.pspec})")
-                return self._place(p.shape, tuple(s.pspec[1:]))
+                return self._place(p.shape, tuple(s.pspec[1:]),
+                                   _is_expert(path))
 
-            out[key] = [tree_map(per, blk, stacked["blocks"]) for blk in sub]
+            out[key] = [tree_map_path(per, blk, stacked["blocks"])
+                        for blk in sub]
         return out
 
     def local(self, t: torch.Tensor, pl: Placement) -> torch.Tensor:
@@ -149,11 +188,12 @@ class LMLayout:
     # -- the forward -------------------------------------------------------
 
     def gather(self, w: torch.Tensor, pl: Placement) -> torch.Tensor:
-        """`w` gathered over the axes it is split on that are not tensor-
-        parallel (FSDP / ZeRO-3): all-gather forward, ordered
-        reduce-scatter of the gradient backward."""
+        """`w` gathered over the axes it is split on that are neither
+        tensor- nor expert-parallel (FSDP / ZeRO-3): all-gather forward,
+        ordered reduce-scatter of the gradient backward."""
         for dim, axes in enumerate(pl.part):
-            g = tuple(a for a in axes if a not in self.tp_axes)
+            g = tuple(a for a in axes
+                      if a not in self.tp_axes and a not in pl.ep)
             if not g:
                 continue
             if g != axes:
@@ -166,14 +206,16 @@ class LMLayout:
     def gather_tree(self, tree, places):
         return tree_map(self.gather, tree, places)
 
-    def col_in(self, x):
+    def col_in(self, x, kind: str = "sum"):
         """A column-parallel input: identity forward, ordered sum over
         'model' backward."""
-        return coll.copy_in(x, self.mesh, self.tp_axes) if self.tp > 1 else x
+        return (coll.copy_in(x, self.mesh, self.tp_axes, kind)
+                if self.tp > 1 else x)
 
-    def row_out(self, y):
+    def row_out(self, y, kind: str = "sum"):
         """A row-parallel output: ordered sum over 'model' forward."""
-        return coll.sum_out(y, self.mesh, self.tp_axes) if self.tp > 1 else y
+        return (coll.sum_out(y, self.mesh, self.tp_axes, kind)
+                if self.tp > 1 else y)
 
     def _local_cfg(self, heads: int, kv: int):
         key = (heads, kv)
@@ -200,10 +242,14 @@ class LMLayout:
 
     def attn_params(self, pa: dict):
         """(the attention's parameters as this rank runs them, the config
-        of its local heads)."""
+        of its local heads).  MLA: its own shards as they are (whole
+        heads of `wq` / `wq_b` and `wkv_b`, rows of `wo`, the latent
+        projections replicated) and n_heads / M heads."""
         cfg, M = self.cfg, self.tp
         if M == 1:
             return pa, cfg
+        if cfg.attention == "mla":
+            return pa, self._local_cfg(cfg.n_heads // M, cfg.n_heads // M)
         kv = self.kv_heads()
         if cfg.n_kv_heads % M == 0:
             return pa, self._local_cfg(cfg.n_heads // M, len(kv))
@@ -224,7 +270,8 @@ class LMLayout:
 
     def cache_cfg(self):
         """The config whose `lm.cache_shapes` are this rank's caches (its
-        batch is the caller's)."""
+        batch is the caller's; MLA's latent caches are whole on every
+        model rank)."""
         if self.tp == 1:
             return self.cfg
         return self._local_cfg(self.cfg.n_heads // self.tp,
@@ -302,8 +349,12 @@ class LMLayout:
 
     def _zero(self, path):
         """(dimension, axes) the update splits a leaf's shard over beyond
-        its parameter's own (ZeRO-1), or None."""
+        its parameter's own (ZeRO-1), or None; never for an expert leaf,
+        which is split over 'data' already (`launch.steps.fsdp_spec`
+        skips it too)."""
         pp, op = self._param_at[path], self._opt_at[path]
+        if pp.ep:
+            return None
         for dim, (a, b) in enumerate(zip(pp.part, op.part)):
             extra = tuple(x for x in b if x not in a)
             if extra:
@@ -328,17 +379,26 @@ class LMLayout:
 
         return tree_map_path(view, params)
 
+    def grad_sum_axes(self, path) -> list:
+        """The batch axes a leaf's gradient is summed over: those its
+        weight is neither gathered over (the gather's reduce-scatter
+        sums those) nor expert-parallel on."""
+        pl = self._param_at[path]
+        kept = set(self.tp_axes) | set(pl.ep)
+        gathered = {a for a in pl.axes if a not in kept}
+        return [a for a in self.batch_axes
+                if a not in gathered and a not in pl.ep]
+
     def sync_grads(self, grads, zero: bool = True):
         """Autograd's gradients (each rank's part) -> the gradient of the
         global loss on each update shard: reduce-scattered over the
         ZeRO-1 axes (`zero`; else on each parameter shard), then summed
-        in rank order over the batch axes the weight is not gathered
-        over."""
+        in rank order over the batch axes the weight is neither gathered
+        over nor expert-parallel on (an expert's owner already holds the
+        gradient of every data rank's tokens)."""
 
         def one(path, g):
-            pl = self._param_at[path]
-            gathered = {a for a in pl.axes if a not in self.tp_axes}
-            rest = [a for a in self.batch_axes if a not in gathered]
+            rest = self.grad_sum_axes(path)
             z = self._zero(path) if zero else None
             if z is not None:
                 dim, axes = z

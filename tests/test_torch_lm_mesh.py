@@ -349,7 +349,7 @@ def test_heads_indivisible_raise():
     LMLayout(dataclasses.replace(cfg, layout="fsdp"), _hand_mesh(1, 2, 2))
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "recurrentgemma-2b",
+@pytest.mark.parametrize("arch", ["phi-3-vision-4.2b", "recurrentgemma-2b",
                                   "whisper-base", "xlstm-1.3b"])
 def test_later_slices_refused(arch):
     with pytest.raises(NotImplementedError, match="later slice"):

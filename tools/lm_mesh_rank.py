@@ -15,14 +15,22 @@ FSDP size floor in entries) and what to run on it:
 
   * ``train``: `launch.train.train(mesh=)` ``runs`` times from the same
     start (each run's losses, grad norms, host seconds a step, the
-    collectives' calls / bytes / seconds, B5's forward and backward
-    launches by route, peak device bytes, and a digest of each leaf of
-    its parameters and moments with the shard it holds), with
-    ``ckpt_dir`` / ``ckpt_every`` when given;
+    collectives' calls / bytes / seconds / payload shapes, B5's forward
+    and backward launches by route, peak device bytes, the card's peak
+    while the ranks drew the weights, a MoE's kept and dropped pairs,
+    and a digest of each leaf of its parameters and moments with the
+    shard it holds), with ``ckpt_dir`` / ``ckpt_every`` when given;
   * ``grads``: step 0's loss and gradients (`steps.make_grad_step`),
-    gathered whole and written by rank 0;
+    gathered whole and written by rank 0, with a MoE's global ``slot``
+    and ``keep`` of each call;
+  * ``f32``: on f32 copies of the seeded draw, step 0's forward (each
+    MoE call's global ``slot`` and ``keep`` written by rank 0) and a
+    greedy generation from step 0's tokens (the whole ids): f32, so that
+    the mesh's reordered sums do not move a near-tied top-k choice or
+    greedy token as bf16's roundings can;
   * ``serve``: `launch.serve.serve(mesh=)` (the whole ids, this rank's
-    seconds, the prefill's last logits gathered whole);
+    seconds, the prefill's last logits gathered whole, a MoE's kept and
+    dropped pairs);
   * ``resave``: the state ``train`` restored (from another mesh's
     checkpoint), gathered and saved again by rank 0 in the one-card
     format under this directory.
@@ -135,8 +143,14 @@ def _zero_counts() -> None:
     fa.bwd_launches = fa.bwd_tc_launches = fa.bwd_core_launches = 0
 
 
+def _init_stats(dev) -> dict:
+    from repro_torch.launch import steps
+    return dict(steps.INIT_STATS) if dev.type == "cuda" else {}
+
+
 def run_train(mesh, cfg, case: dict, root: pathlib.Path) -> dict:
     from repro_torch.launch import steps, train as train_lib
+    from repro_torch.models import moe
     from repro_torch.sharding import collectives as coll
     tr = case["train"]
     dev = mesh.device
@@ -152,11 +166,12 @@ def run_train(mesh, cfg, case: dict, root: pathlib.Path) -> dict:
         ckpt = tr.get("ckpt_dir")
         _sync(dev)
         t0 = time.perf_counter()
-        params, state, losses = train_lib.train(
-            cfg, steps=tr["steps"], batch=tr["batch"], seq=tr["seq"],
-            verbose=False, history=hist, mesh=mesh,
-            ckpt_dir=str(root / ckpt) if ckpt else None,
-            ckpt_every=tr.get("ckpt_every", 0))
+        with moe.record_dispatch() as log:
+            params, state, losses = train_lib.train(
+                cfg, steps=tr["steps"], batch=tr["batch"], seq=tr["seq"],
+                verbose=False, history=hist, mesh=mesh,
+                ckpt_dir=str(root / ckpt) if ckpt else None,
+                ckpt_every=tr.get("ckpt_every", 0))
         _sync(dev)
         n = max(len(hist), 1)
         rec = {"losses": losses,
@@ -167,6 +182,8 @@ def run_train(mesh, cfg, case: dict, root: pathlib.Path) -> dict:
                "collective_s_per_step": {k: v["seconds"] / n
                                          for k, v in coll.STATS.items()},
                "launches": _fa_counts(),
+               "pairs": moe.dispatch_counts(log),
+               "init": _init_stats(dev),
                "digests": digests(lay, params, state)}
         if dev.type == "cuda":
             rec["peak_device_bytes"] = torch.cuda.max_memory_allocated(dev)
@@ -187,29 +204,65 @@ def run_train(mesh, cfg, case: dict, root: pathlib.Path) -> dict:
 
 def run_grads(mesh, cfg, case: dict, out: dict) -> dict:
     from repro_torch.launch import steps, train as train_lib
+    from repro_torch.models import moe
     from repro_torch.models.layers import tree_items, tree_map
     g = case["grads"]
     lay = steps.layout_for(cfg, mesh)
     params = steps.init_params(cfg, 0, mesh.device, mesh=mesh)
     b = train_lib.batch_at(cfg, g["batch"], g["seq"], 0, device=mesh.device)
     b = {k: lay.batch_slice(v) for k, v in b.items()}
-    loss, grads = steps.make_grad_step(cfg, mesh)(params, b)
+    with moe.record_dispatch() as log:
+        loss, grads = steps.make_grad_step(cfg, mesh)(params, b)
     whole = tree_map(lay.full, grads, lay.params)
     if mesh.rank == 0:
         for path, t in tree_items(whole):
             out[f"{case['name']}/grads/{_key(path)}"] = t.float().cpu().numpy()
-    return {"loss": float(loss)}
+        for i, rec in enumerate(log):
+            for k, v in rec.items():
+                out[f"{case['name']}/dispatch/{i}/{k}"] = v.numpy()
+    return {"loss": float(loss), "pairs": moe.dispatch_counts(log)}
+
+
+def run_f32(mesh, cfg, case: dict, out: dict) -> dict:
+    from repro_torch import sharding
+    from repro_torch.launch import serve as serve_lib, steps
+    from repro_torch.launch import train as train_lib
+    from repro_torch.models import lm, moe
+    from repro_torch.models.layers import tree_map
+    f = case["f32"]
+    lay = steps.layout_for(cfg, mesh)
+    params = tree_map(lambda t: t.float(),
+                      steps.init_params(cfg, 0, mesh.device, mesh=mesh))
+    tokens = lay.batch_slice(train_lib.batch_at(
+        cfg, f["batch"], f["seq"], 0, device=mesh.device)["tokens"])
+    with torch.no_grad(), sharding.use_layout(lay), \
+            moe.record_dispatch() as log:
+        lm.forward(params, tokens, cfg, mode="train")
+    if mesh.rank == 0:
+        for i, rec in enumerate(log):
+            for k, v in rec.items():
+                out[f"{case['name']}/dispatch/{i}/{k}"] = v.numpy()
+    ids = lay.batch_gather(serve_lib.generate(params, tokens, cfg, f["gen"],
+                                              mesh=mesh))
+    return {"pairs": moe.dispatch_counts(log), "calls": len(log),
+            "ids": ids.cpu().tolist()}
 
 
 def run_serve(mesh, cfg, case: dict, out: dict) -> dict:
     from repro_torch.launch import serve as serve_lib, steps
+    from repro_torch.models import moe
     from repro_torch.sharding import collectives as coll
     sv = case["serve"]
     coll.reset_stats()
     _zero_counts()
     st: dict = {}
-    ids = serve_lib.serve(cfg, batch=sv["batch"], prompt_len=sv["prompt"],
-                          gen=sv["gen"], verbose=False, stats=st, mesh=mesh)
+    if mesh.device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+    with moe.record_dispatch() as log:
+        ids = serve_lib.serve(cfg, batch=sv["batch"],
+                              prompt_len=sv["prompt"], gen=sv["gen"],
+                              verbose=False, stats=st, mesh=mesh)
     lay = steps.layout_for(dataclasses.replace(cfg, layout="tp"), mesh)
     logits = st.pop("prefill_logits").to(mesh.device)
     if lay.tp > 1:
@@ -220,6 +273,9 @@ def run_serve(mesh, cfg, case: dict, out: dict) -> dict:
         out[f"{case['name']}/serve/logits"] = logits.cpu().numpy()
     return {"ids": ids.cpu().tolist(), "launches": _fa_counts(),
             "collectives": {k: dict(v) for k, v in coll.STATS.items()},
+            "pairs": moe.dispatch_counts(log), "init": _init_stats(mesh.device),
+            **({"peak_device_bytes": torch.cuda.max_memory_allocated(
+                mesh.device)} if mesh.device.type == "cuda" else {}),
             **{k: v for k, v in st.items() if isinstance(v, (int, float))}}
 
 
@@ -258,8 +314,11 @@ def main() -> None:
         if case.get("weights"):
             use_weights(load_weights(str(args.root / case["weights"]), cfg))
         got = {"coords": list(mesh.coords), "device": str(mesh.device)}
+        print(f"rank {args.rank}: case {case['name']}", flush=True)
         if "grads" in case:
             got["grads"] = run_grads(mesh, cfg, case, out)
+        if "f32" in case:
+            got["f32"] = run_f32(mesh, cfg, case, out)
         if "train" in case:
             got["train"] = run_train(mesh, cfg, case, args.root)
         if "serve" in case:
